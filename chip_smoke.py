@@ -1,0 +1,505 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Drives the port's main path, ``flowtrack_tpu_torch.tracking.clip_pipeline.
+ClipTracker`` with PoseResNet-50 at 256x192 (flip test, detector-miss
+recovery, cross-clip seed) and FlowNetC, through the port's hand-written
+CUDA kernels, in phases that each print one line:
+
+  1. device: refuses to run without CUDA; prints the card's name and power
+     limit as nvidia-smi reports them;
+  2. build: compiles the kernels in flowtrack_tpu_torch/csrc with nvcc;
+  3. kernels: each kernel against its plain PyTorch version on the card at
+     the main path's shapes (max error against a stated tolerance, times);
+  4. slice: three chained 16-frame 384x640 clips at full width with seeded
+     random weights, both kernels' launch counts read around the run, and
+     frames/s after a warm-up clip; then one clip under torch.profiler
+     (device busy and idle share, host syncs, time per clip.* stage);
+  5. tracking: planted-heatmap pose and constant-flow stubs; ids must stay
+     stable across clip boundaries and survive a dropped detection;
+  6. precision: the bf16 pose and flow nets against float32 ones with the
+     same weights, at full width.
+
+Then a JSON line with each kernel's numbers and, last, the device line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
+It needs the repository checkout (it imports the port from beside this
+file) and no network; jax is not used.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+# main-path shapes
+FRAMES, FRAME_H, FRAME_W = 16, 384, 640
+PERSONS, RECOVERED = 8, 4
+CLIPS = 3
+SEED = 0
+# kernel-vs-plain tolerances, max |kernel - plain|:
+# crop float32: a few ulp of the normalized value (|x| < 3; summation order)
+# crop bf16: one bf16 ulp at |x| < 4 (both round float32 values that may
+#   differ in the last bits)
+# correlation: float32 sums of 256 bf16 products in another order, /256
+CROP_F32_TOL = 1e-4
+CROP_BF16_TOL = 2.0 ** -6
+CORR_TOL = 1e-4
+# bf16 compute against float32 at full width, same random weights: max
+# |diff| over the float32 output's max |value| (measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: pose 1.5%, flow 0.5%)
+POSE_BF16_REL_TOL = 0.05
+FLOW_BF16_REL_TOL = 0.02
+
+
+def log(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def require(cond, what) -> None:
+    """A check that stays under ``python -O`` (unlike ``assert``)."""
+    if not cond:
+        raise AssertionError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this smoke runs only "
+                         "on the card")
+    import flowtrack_tpu_torch  # noqa: F401  (the checkout's port, or fail)
+
+    card = card_line()
+    print(card, flush=True)
+    # float32 references compare in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("device", name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__,
+        cuda=torch.version.cuda)
+    return card
+
+
+def phase_build():
+    from flowtrack_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    path = kernels.build()
+    kernels.library()
+    log("build", seconds=f"{time.perf_counter() - t0:.1f}", library=path.name)
+
+
+def random_boxes(rng, f, p, h, w):
+    """Person boxes (F, P, 4) xywh, some hanging off the frame's edges."""
+    bw = rng.uniform(40, 260, (f, p))
+    bh = bw * rng.uniform(1.2, 2.5, (f, p))
+    x = rng.uniform(-0.2, 1.0, (f, p)) * w - bw * 0.3
+    y = rng.uniform(-0.2, 1.0, (f, p)) * h - bh * 0.3
+    return np.stack([x, y, bw, bh], -1).astype(np.float32)
+
+
+def phase_kernels():
+    from flowtrack_tpu.config import IMAGENET_MEAN, IMAGENET_STD
+    from flowtrack_tpu_torch.ops import correlation as corr_mod
+    from flowtrack_tpu_torch.ops import crop as crop_mod
+    from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    results = []
+
+    # K1: the stage-2 crop of one clip, 8 persons per frame, 256x192 out
+    boxes = random_boxes(rng, FRAMES, PERSONS, FRAME_H, FRAME_W).reshape(-1, 4)
+    centers, scales = batched_box_to_center_scale(boxes, 192 / 256)
+    centers = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    idx = torch.arange(FRAMES, device=dev).repeat_interleave(PERSONS)
+    pixels = rng.integers(0, 256, (FRAMES, FRAME_H, FRAME_W, 3), np.uint8)
+    worst = 0.0
+    for in_dtype in (torch.float32, torch.uint8):
+        frames = torch.as_tensor(pixels, device=dev).to(in_dtype).contiguous()
+        for out_dtype, tol in ((torch.bfloat16, CROP_BF16_TOL),
+                               (torch.float32, CROP_F32_TOL)):
+            args = (frames, idx, centers, scales, (256, 192),
+                    IMAGENET_MEAN, IMAGENET_STD, 255.0, out_dtype)
+            got = crop_mod.crop_frames_cuda(*args)
+            want = crop_mod.crop_frames_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(err <= tol, f"crop {in_dtype}->{out_dtype}: max err "
+                                f"{err} > {tol}")
+            worst = max(worst, err)
+            log("kernels", kernel="crop", frames=str(in_dtype), out=str(out_dtype),
+                max_abs_err=err, tol=tol)
+    # timed at the main path's own types: float32 frames -> bf16 crops
+    frames = torch.as_tensor(pixels, device=dev).float().contiguous()
+    args = (frames, idx, centers, scales, (256, 192), IMAGENET_MEAN,
+            IMAGENET_STD, 255.0, torch.bfloat16)
+    ms = time_ms(lambda: crop_mod.crop_frames_cuda(*args), 50)
+    plain_ms = time_ms(lambda: crop_mod.crop_frames_plain(*args), 5)
+    log("kernels", kernel="crop", ms=ms, plain_ms=plain_ms)
+    results.append({"name": "crop_resize_normalize", "route": "cuda",
+                    "source": "flowtrack_tpu_torch/csrc/crop.cu",
+                    "replaces": "flowtrack_tpu/ops/crop.py:113",
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+
+    # K2: the FlowNetC cost volume of one clip's 15 pairs at 1/8 resolution
+    shape = (FRAMES - 1, FRAME_H // 8, FRAME_W // 8, 256)
+    f1 = torch.as_tensor(rng.standard_normal(shape), device=dev).to(torch.bfloat16)
+    f2 = torch.as_tensor(rng.standard_normal(shape), device=dev).to(torch.bfloat16)
+    f1n = f1.permute(0, 3, 1, 2).contiguous()
+    f2n = f2.permute(0, 3, 1, 2).contiguous()
+    got = corr_mod.correlation_cuda(f1n, f2n, 20, 2)
+    want = corr_mod.correlation_plain(f1, f2, 20, 2).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(err <= CORR_TOL, f"correlation: max err {err} > {CORR_TOL}")
+    # float32 features (float32 configs) at another grid, on a ragged map
+    g1 = torch.as_tensor(rng.standard_normal((2, 32, 9, 11)), device=dev).float()
+    g2 = torch.as_tensor(rng.standard_normal((2, 32, 9, 11)), device=dev).float()
+    got32 = corr_mod.correlation_cuda(g1, g2, 4, 1)
+    want32 = corr_mod.correlation_plain(g1.permute(0, 2, 3, 1),
+                                        g2.permute(0, 2, 3, 1), 4, 1)
+    torch.cuda.synchronize()
+    err32 = (got32 - want32.permute(0, 3, 1, 2)).abs().max().item()
+    require(got32.shape == (2, 81, 9, 11) and err32 <= CORR_TOL,
+            f"correlation float32 md 4: shape {tuple(got32.shape)}, "
+            f"max err {err32} > {CORR_TOL}")
+    log("kernels", kernel="correlation", features="float32", md=4, stride2=1,
+        max_abs_err=err32, tol=CORR_TOL)
+    ms = time_ms(lambda: corr_mod.correlation_cuda(f1n, f2n, 20, 2), 20)
+    plain_ms = time_ms(lambda: corr_mod.correlation_plain(f1, f2, 20, 2), 2,
+                       warmup=1)
+    log("kernels", kernel="correlation", max_abs_err=err, tol=CORR_TOL,
+        ms=ms, plain_ms=plain_ms)
+    results.append({"name": "correlation", "route": "cuda",
+                    "source": "flowtrack_tpu_torch/csrc/correlation.cu",
+                    "replaces": "flowtrack_tpu/ops/correlation.py:73",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    torch.cuda.synchronize()
+    return results
+
+
+def video_detections(rng, n_frames, persons, h, w, vel, drop=()):
+    """Persons moving at constant velocity: boxes (n_frames, P, 4) xywh,
+    scores and valid (n_frames, P); person j is undetected at the global
+    frames in drop[j]."""
+    p = persons
+    bw = rng.uniform(60, 110, p)
+    bh = bw * rng.uniform(1.6, 2.2, p)
+    x0 = rng.uniform(0.05, 0.6, p) * w
+    y0 = rng.uniform(0.05, 0.4, p) * h
+    t = np.arange(n_frames)[:, None]
+    boxes = np.stack([x0 + vel[0] * t, y0 + vel[1] * t,
+                      np.broadcast_to(bw, (n_frames, p)),
+                      np.broadcast_to(bh, (n_frames, p))], -1)
+    scores = np.broadcast_to(rng.uniform(0.6, 0.95, p), (n_frames, p)).copy()
+    valid = np.ones((n_frames, p), bool)
+    for j, frames in enumerate(drop):
+        valid[list(frames), j] = False
+    return boxes.astype(np.float32), scores.astype(np.float32), valid
+
+
+def run_clips(tracker, frames, boxes, scores, valid, clip_len):
+    """Chained clips overlapping by one frame, each seeded by the last."""
+    outs, seed, start = [], None, 0
+    while start + clip_len <= len(frames):
+        sl = slice(start, start + clip_len)
+        out, seed = tracker.track_clip(frames[sl], boxes[sl], scores[sl],
+                                       valid[sl], seed=seed,
+                                       frame_offset=start, return_seed=True)
+        outs.append(out)
+        start += clip_len - 1
+    return outs
+
+
+def phase_slice(card):
+    """Full width: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
+    from flowtrack_tpu.config import get_config
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.ops import correlation as corr_mod
+    from flowtrack_tpu_torch.ops import crop as crop_mod
+    from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+
+    base = get_config("coco_res50_256x192")
+    cfg = replace(base, flow=replace(base.flow, variant="flownet_c",
+                                     use_pallas_corr=True),
+                  track=replace(base.track, max_persons=PERSONS,
+                                max_recovered=RECOVERED))
+    require(cfg.model.dtype == cfg.flow.dtype == "bfloat16", "bf16 config")
+    require(cfg.test.flip_test and cfg.track.clip_recover, "flip + recovery")
+    gen = torch.Generator().manual_seed(SEED)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    tracker = ClipTracker(cfg, get_pose_net(cfg.model, dev, gen),
+                          get_flow_net(cfg.flow, dev, gen),
+                          max_persons=PERSONS, device=dev)
+    rng = np.random.default_rng(SEED)
+    n_frames = CLIPS * (FRAMES - 1) + 1
+    video = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W, 3), np.uint8)
+    boxes, scores, valid = video_detections(
+        rng, n_frames, PERSONS, FRAME_H, FRAME_W, (2.0, 1.0),
+        drop=[(2, 3), (FRAMES + 4,), (FRAMES - 1,)])
+    log("slice", setup_s=f"{time.perf_counter() - t0:.1f}")
+
+    warm = run_clips(tracker, video[:FRAMES], boxes, scores, valid, FRAMES)
+    torch.cuda.synchronize()
+    crop_mod.crop_frames_cuda.launches = 0
+    corr_mod.correlation_cuda.launches = 0
+    t0 = time.perf_counter()
+    outs = run_clips(tracker, video, boxes, scores, valid, FRAMES)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"crop_resize_normalize": crop_mod.crop_frames_cuda.launches,
+                "correlation": corr_mod.correlation_cuda.launches}
+    require(all(launches.values()),
+            f"a kernel of the path never launched: {launches}")
+    slots = PERSONS + RECOVERED
+    for out in warm + outs:
+        require(out["joints"].shape == (FRAMES, slots, 17, 2),
+                f"joints {out['joints'].shape}")
+        require(out["maxvals"].shape == (FRAMES, slots, 17),
+                f"maxvals {out['maxvals'].shape}")
+        require(out["ids"].shape == out["valid"].shape == (FRAMES, slots),
+                f"ids {out['ids'].shape}")
+        for key in ("joints", "maxvals", "scores"):
+            require(np.isfinite(out[key]).all(), f"non-finite {key}")
+    fps = CLIPS * FRAMES / elapsed
+    log("slice", clips=len(outs), frames_per_clip=FRAMES,
+        frame_hw=f"{FRAME_H}x{FRAME_W}", persons=PERSONS, seconds=elapsed,
+        frames_per_s=fps, launches=launches, card=f"'{card}'",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    phase_profile(tracker, video, boxes, scores, valid)
+    return launches
+
+
+def phase_profile(tracker, video, boxes, scores, valid):
+    """One clip under torch.profiler: wall time, device busy time and idle
+    share, device events, host syncs, each clip.* stage's host ms, kernel ms
+    and device span ms, and the heaviest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sl = slice(0, FRAMES)
+    args = tracker.prepare(video[sl], boxes[sl], scores[sl], valid[sl])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracker.to_host(tracker.run_prepared(args))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # device work = kernels and copies; the clip.* ranges also appear as
+    # device-side annotations spanning their kernels, so they are left out
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith("clip.")]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    host_syncs = sum(e.name == "aten::_local_scalar_dense" for e in events)
+    stages = {}
+    for e in prof.key_averages():
+        if e.key.startswith("clip."):
+            host, kern, span = stages.get(e.key, (0.0, 0.0, 0.0))
+            if e.cpu_time_total > 0:
+                host, kern = e.cpu_time_total / 1e3, e.device_time_total / 1e3
+            else:
+                span = e.device_time_total / 1e3
+            stages[e.key] = (round(host, 3), round(kern, 3), round(span, 3))
+    by_name = {}
+    for e in device:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+        idle_share=1 - busy_ms / wall_ms, device_events=len(device),
+        host_syncs=host_syncs, stages_host_kernel_span_ms=stages)
+    log("profile", top_device_ms=[(k, round(v, 3)) for k, v in top])
+
+
+class PlantedPose(torch.nn.Module):
+    """A pose net whose heatmaps hold a fixed star of 17 gaussian peaks
+    around the crop centre, whatever the crop: decoded joints follow the
+    boxes through the real crop, decode and rescore."""
+
+    def __init__(self, hm_hw, device):
+        super().__init__()
+        ang = np.linspace(0, 2 * np.pi, 17, endpoint=False)
+        offs = np.stack([np.cos(ang), np.sin(ang)], 1) * 0.3 + 0.5
+        hh, hw = hm_hw
+        ys = torch.arange(hh, dtype=torch.float32)[:, None]
+        xs = torch.arange(hw, dtype=torch.float32)[None, :]
+        maps = [torch.exp(-((xs - round(ox * hw)) ** 2
+                            + (ys - round(oy * hh)) ** 2) / 8.0)
+                for ox, oy in offs]
+        self.register_buffer("hm", torch.stack(maps).to(device))
+
+    def forward(self, x):
+        return self.hm.expand(x.shape[0], -1, -1, -1)
+
+
+class ConstantFlow(torch.nn.Module):
+    """A flow net that returns the true constant motion, at quarter
+    resolution in units of div_flow."""
+
+    def __init__(self, vel, div_flow, device):
+        super().__init__()
+        self.register_buffer("vel", torch.tensor(
+            [vel[0] / div_flow, vel[1] / div_flow], device=device))
+
+    def forward(self, x):
+        n, _, h, w = x.shape
+        return self.vel.view(1, 2, 1, 1).expand(n, 2, h // 4, w // 4)
+
+
+def phase_tracking():
+    """Planted-heatmap pose + constant-flow stubs through the real crop
+    kernel, decode and scans: ids stable across clip boundaries and through
+    dropped detections, and equal to the port's plain run on the CPU."""
+    from flowtrack_tpu.config import get_config
+    from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+
+    base = get_config("coco_res50_256x192")
+    persons = 4
+    cfg = replace(base, test=replace(base.test, flip_test=False),
+                  track=replace(base.track, max_persons=persons,
+                                max_recovered=RECOVERED))
+    vel = (3.0, 1.5)
+    rng = np.random.default_rng(SEED + 1)
+    n_frames = CLIPS * (FRAMES - 1) + 1
+    video = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W, 3), np.uint8)
+    # 3 persons in 4 slots; person 0 missed inside clip 2, person 2 at the
+    # boundary frame shared by clips 2 and 3
+    boxes, scores, valid = video_detections(
+        rng, n_frames, 3, FRAME_H, FRAME_W, vel,
+        drop=[(FRAMES + FRAMES // 4,), (), (2 * (FRAMES - 1),)])
+    pad = persons - 3
+    boxes = np.concatenate([boxes, np.zeros((n_frames, pad, 4), np.float32)], 1)
+    scores = np.concatenate([scores, np.zeros((n_frames, pad), np.float32)], 1)
+    valid = np.concatenate([valid, np.zeros((n_frames, pad), bool)], 1)
+
+    results = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        tracker = ClipTracker(cfg, PlantedPose(cfg.model.heatmap_size, dev),
+                              ConstantFlow(vel, cfg.flow.div_flow, dev),
+                              device=dev)
+        results[name] = run_clips(tracker, video, boxes, scores, valid, FRAMES)
+    torch.cuda.synchronize()
+    for got, want in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_array_equal(got["ids"], want["ids"])
+        np.testing.assert_array_equal(got["valid"], want["valid"])
+        v = want["valid"]
+        np.testing.assert_allclose(got["joints"][v], want["joints"][v],
+                                   atol=0.5)
+
+    person_ids = {}
+    recovered = 0
+    for c, out in enumerate(results["cuda"]):
+        for t in range(FRAMES):
+            g = c * (FRAMES - 1) + t
+            live = out["ids"][t][out["valid"][t]].tolist()
+            for j in range(3):
+                if valid[g, j]:
+                    pid = int(out["ids"][t, j])
+                else:            # missed: carried by one recovery slot
+                    rec = out["ids"][t, persons:][out["valid"][t, persons:]]
+                    require(len(rec) == 1, (g, j, out["ids"][t]))
+                    pid = int(rec[0])
+                    recovered += 1
+                require(pid >= 0 and live.count(pid) == 1, (g, j, live))
+                if person_ids.setdefault(j, pid) != pid:
+                    raise AssertionError(f"person {j} changed id at frame "
+                                         f"{g}: {person_ids[j]} -> {pid}")
+    require(len(set(person_ids.values())) == 3, person_ids)
+    log("tracking", clips=len(results["cuda"]), ids=person_ids,
+        recovered_frames=recovered, cpu_equal=True)
+
+
+def phase_precision():
+    """What bfloat16 compute (autocast, float32 parameters) costs against
+    float32 on the card, at full width with the same random weights: the
+    largest difference of each model's output over the float32 output's
+    largest magnitude."""
+    from flowtrack_tpu.config import get_config
+    from flowtrack_tpu_torch.models.flownet import get_flow_net, preprocess_pair
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+
+    base = get_config("coco_res50_256x192")
+    flow_cfg = replace(base.flow, variant="flownet_c")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    pose16 = get_pose_net(base.model, dev, gen)
+    pose32 = get_pose_net(replace(base.model, dtype="float32"), dev)
+    pose32.load_state_dict(pose16.state_dict())
+    flow16 = get_flow_net(flow_cfg, dev, gen)
+    flow32 = get_flow_net(replace(flow_cfg, dtype="float32"), dev)
+    flow32.load_state_dict(flow16.state_dict())
+    rng = np.random.default_rng(SEED + 2)
+    crops = torch.as_tensor(rng.standard_normal((16, 3, 256, 192)),
+                            dtype=torch.float32, device=dev)
+    frames = torch.as_tensor(
+        rng.integers(0, 256, (3, FRAME_H, FRAME_W, 3), np.uint8), device=dev)
+    pairs = preprocess_pair(frames[:-1], frames[1:]).permute(0, 3, 1, 2)
+    errs = {}
+    with torch.inference_mode():
+        for name, m16, m32, x, tol in (
+                ("pose", pose16, pose32, crops, POSE_BF16_REL_TOL),
+                ("flow", flow16, flow32, pairs.contiguous(), FLOW_BF16_REL_TOL)):
+            want = m32(x)
+            err = ((m16(x) - want).abs().max() / want.abs().max()).item()
+            torch.cuda.synchronize()
+            require(err <= tol, f"{name} bf16 vs float32: {err} > {tol}")
+            errs[name] = err
+    log("precision", pose_rel_err=errs["pose"], pose_tol=POSE_BF16_REL_TOL,
+        flow_rel_err=errs["flow"], flow_tol=FLOW_BF16_REL_TOL)
+
+
+def main() -> int:
+    card = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    launches = phase_slice(card)
+    torch.cuda.synchronize()
+    phase_tracking()
+    torch.cuda.synchronize()
+    phase_precision()
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,105 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface under ``build/flowtrack_tpu_torch/``
+beside the package, at first use and again whenever a source or a flag
+changes (the file name carries their hash). The library is loaded with
+``ctypes``; each entry point launches on the stream it is given and returns
+the launch's ``cudaError_t``, which :func:`check` turns into an exception.
+
+There is no CPU fallback here: :func:`library` raises ``RuntimeError`` when
+there is no CUDA device or no ``nvcc``. The ops modules route CPU tensors to
+their plain PyTorch versions before they ever ask for the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("crop.cu", "correlation.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowtrack_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ft_crop_resize_normalize": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I,
+                                 _F, _F, _F, _F, _F, _F, _F, _P, _I, _P],
+    "ft_correlation_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME:
+        candidate = Path(CUDA_HOME) / "bin" / "nvcc"
+        found = str(candidate) if candidate.exists() else None
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "flowtrack_tpu_torch are built with the CUDA "
+                           "toolkit's nvcc")
+    return found
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libflowtrack_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists.
+    Raises RuntimeError without a CUDA device or without nvcc."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("flowtrack_tpu_torch kernels need a CUDA device; "
+                           "CPU tensors take the plain PyTorch versions")
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ft_error_string.argtypes = [ctypes.c_int]
+        lib.ft_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().ft_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")

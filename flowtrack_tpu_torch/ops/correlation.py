@@ -1,0 +1,96 @@
+"""Correlation (cost volume), the FlowNetC matching layer (kernel K2).
+
+Port of ``flowtrack_tpu/ops/correlation.py``: ``displacement_grid``
+(correlation.py:43), the plain twin of ``correlation_xla`` (:48), and in
+place of the TPU kernel ``_corr_kernel`` (:73) the CUDA kernel in
+``csrc/correlation.cu``, whose source note gives its bytes, MACs and design.
+
+Contract (the lineage's correlation package): kernel 1, max displacement
+``md``, stride2 ``s2``, D = len({-md, -md+s2, ..., md}) shifts per axis,
+D*D output channels dy-major / dx-minor; channel (dy, dx) is the mean over
+input channels of ``f1[y, x] * f2[y+dy, x+dx]``, reading 0 outside the
+map; the output is float32. Forward only: training needs its backward.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel, or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from flowtrack_tpu_torch import kernels
+
+_MAX_D = 21  # displacements per axis the kernel keeps in registers
+
+
+def displacement_grid(max_displacement: int = 20, stride2: int = 2):
+    """Displacement values along one axis: {-md, -md+s2, ..., md}."""
+    return list(range(-max_displacement, max_displacement + 1, stride2))
+
+
+def correlation_plain(f1, f2, max_displacement: int = 20, stride2: int = 2):
+    """Plain PyTorch version: f1, f2 (N, H, W, C) -> (N, H, W, D*D) float32,
+    D*D shifted elementwise products over a zero-padded f2."""
+    n, h, w, c = f1.shape
+    md = max_displacement
+    f1 = f1.float()
+    f2p = F.pad(f2.float(), (0, 0, md, md, md, md))
+    inv_c = 1.0 / c
+    outs = []
+    for dy in displacement_grid(md, stride2):
+        for dx in displacement_grid(md, stride2):
+            f2s = f2p[:, md + dy:md + dy + h, md + dx:md + dx + w, :]
+            outs.append((f1 * f2s).sum(-1) * inv_c)
+    return torch.stack(outs, dim=-1)
+
+
+def correlation_cuda(f1, f2, max_displacement: int = 20, stride2: int = 2):
+    """Launch K2. f1, f2 (N, C, H, W) contiguous, bfloat16 or float32, on a
+    CUDA device -> (N, D*D, H, W) float32."""
+    if f1.device.type != "cuda" or f2.device != f1.device:
+        raise RuntimeError(f"correlation kernel needs CUDA tensors on one "
+                           f"device, got {f1.device} and {f2.device}")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"f1, f2 must be equal (N, C, H, W), got "
+                         f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
+        raise TypeError(f"f1, f2 must both be bfloat16 or float32, got "
+                        f"{f1.dtype} and {f2.dtype}")
+    if not (f1.is_contiguous() and f2.is_contiguous()):
+        raise ValueError("f1, f2 must be contiguous")
+    d = len(displacement_grid(max_displacement, stride2))
+    if d > _MAX_D:
+        raise ValueError(f"the kernel takes at most {_MAX_D} displacements "
+                         f"per axis, got {d}")
+    n, c, h, w = f1.shape
+    out = torch.empty((n, d * d, h, w), dtype=torch.float32, device=f1.device)
+    if out.numel():
+        err = kernels.library().ft_correlation_forward(
+            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w,
+            max_displacement, stride2, d, int(f1.dtype == torch.bfloat16),
+            torch.cuda.current_stream(f1.device).cuda_stream)
+        kernels.check(err, "correlation")
+        correlation_cuda.launches += 1
+    return out
+
+
+correlation_cuda.launches = 0
+
+
+def correlation_nchw(f1, f2, max_displacement: int = 20, stride2: int = 2):
+    """FlowNetC's call: NCHW features -> (N, D*D, H, W) float32 volume."""
+    if f1.device.type == "cpu":
+        out = correlation_plain(f1.permute(0, 2, 3, 1), f2.permute(0, 2, 3, 1),
+                                max_displacement, stride2)
+        return out.permute(0, 3, 1, 2)
+    return correlation_cuda(f1.contiguous(), f2.contiguous(),
+                            max_displacement, stride2)
+
+
+def correlation(f1, f2, max_displacement: int = 20, stride2: int = 2):
+    """Public entry, the reference's layout: (N, H, W, C) -> (N, H, W, D*D)."""
+    out = correlation_nchw(f1.permute(0, 3, 1, 2), f2.permute(0, 3, 1, 2),
+                           max_displacement, stride2)
+    return out.permute(0, 2, 3, 1)

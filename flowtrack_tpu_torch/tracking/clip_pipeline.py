@@ -1,0 +1,442 @@
+"""Whole-clip tracking pipeline on the GPU.
+
+Port of ``flowtrack_tpu/tracking/clip_pipeline.py``: ``_box_xyxy_to_center_
+scale`` (:106), ``_chunked_apply`` (:121), ``_assign_ids`` (:138),
+``ClipTracker`` (:152) and ``pad_detections`` (:613). The reference's module
+docstring describes the algorithm; in short, per clip of F frames with P
+detector slots:
+
+  1. FlowNet on all F-1 frame pairs in one batched call;
+  2. one crop launch (kernel K1) for all F*P detections, pose with the
+     flip-test double batch, flip merge, decode and rescore;
+  3. detector-miss recovery: a per-frame scan greedy-OKS-matches the
+     flow-propagated tracks against the candidates and emits a box for
+     every unmatched track (``track.max_recovered`` slots per frame, at
+     most ``track.max_miss_age`` misses in a row); the clip-wide top
+     ``ceil(F * track.recover_budget)`` boxes by score are cropped in one
+     launch and posed in one batch, then scattered back to their slots;
+  4. the greedy-OKS id scan over the P + R candidate slots, seeded with the
+     previous clip's final track state (the clips overlap by one frame).
+
+The batched calls run as PyTorch ops on one stream; the per-frame scans of
+stages 3 and 4 are a Python loop of small tensor ops that never syncs with
+the host (no ``.item()``, no branch on a device value), so the host only
+queues work until ``to_host`` copies the result back. Each stage runs in a
+``torch.profiler.record_function`` range named ``clip.<stage>``, so a
+profile attributes the clip's time to its stages.
+
+Differences from the reference: it runs eagerly, not as one compiled
+program; ``real_frames`` is a plain int; the batched multi-stream
+``track_clips`` and ``frame_sharding`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from flowtrack_tpu.config import (
+    COCO_FLIP_PAIRS,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    PIXEL_STD,
+    Config,
+)
+from flowtrack_tpu_torch.models.flownet import (
+    postprocess_flow,
+    preprocess_pair,
+    resize_bilinear,
+)
+from flowtrack_tpu_torch.models.layers import torch_dtype
+from flowtrack_tpu_torch.ops.crop import crop_frames
+from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
+from flowtrack_tpu_torch.ops.heatmap import merge_flip_test
+from flowtrack_tpu_torch.ops.nms import iou_matrix
+from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
+from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+from flowtrack_tpu_torch.tracking.tracker import (
+    boxes_from_poses,
+    greedy_match,
+    propagate_poses,
+)
+
+
+def _box_xyxy_to_center_scale(boxes, aspect_ratio: float,
+                              scale_padding: float = 1.25):
+    """Tensor twin of pipeline.batched_box_to_center_scale for xyxy boxes."""
+    w = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-3)
+    h = (boxes[:, 3] - boxes[:, 1]).clamp(min=1e-3)
+    centers = torch.stack([boxes[:, 0] + w * 0.5, boxes[:, 1] + h * 0.5], 1)
+    wide = w > aspect_ratio * h
+    h = torch.where(wide, w / aspect_ratio, h)
+    w = torch.where(~wide & (w < aspect_ratio * h), h * aspect_ratio, w)
+    scales = torch.stack([w, h], dim=1) / PIXEL_STD * scale_padding
+    return centers, scales
+
+
+def _chunked_apply(fn, x, chunk: int):
+    """``fn`` (batch-elementwise) over ``x`` in chunks of ``chunk`` leading
+    items, to cap peak activation memory; the same result as one call.
+    chunk <= 0 or chunk >= len(x) is one call."""
+    if chunk <= 0 or x.shape[0] <= chunk:
+        return fn(x)
+    return torch.cat([fn(part) for part in x.split(chunk)], dim=0)
+
+
+def _assign_ids(assign, cand_valid, track_ids, next_id):
+    """assign (P,) row or -1 -> (ids (P,) int32, next id): matched
+    candidates inherit the track's id, valid unmatched ones get fresh
+    consecutive ids from ``next_id``, the rest -1."""
+    matched = assign >= 0
+    inherited = track_ids[assign.clamp(min=0).long()]
+    new_mask = ~matched & cand_valid
+    ranks = torch.cumsum(new_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    ids = torch.where(matched, inherited,
+                      torch.where(new_mask, next_id + ranks,
+                                  torch.full_like(ranks, -1)))
+    return ids, next_id + new_mask.sum(dtype=torch.int32)
+
+
+def _top_k(x, k: int):
+    """Top ``k`` of a 1-D tensor, ties to the lower index (jax.lax.top_k's
+    order, which torch.topk does not promise)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+class ClipTracker:
+    """Batched-clip FlowTrack on one device. All frames share one (H, W).
+
+    ``pose_model``: (M, 3, h, w) crops -> (M, K, h/4, w/4) float32
+    heatmaps; ``flow_model``: (N, 6, H, W) pairs -> (N, 2, H/4, W/4)
+    quarter-resolution flow / div_flow (the port's PoseResNet and
+    FlowNetS/C). Both are put on ``device`` in eval mode."""
+
+    def __init__(self, cfg: Config, pose_model, flow_model,
+                 max_persons: Optional[int] = None, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ClipTracker on 'cuda' needs a CUDA device; "
+                               "pass device='cpu' to run the plain versions")
+        self.cfg = cfg
+        self.device = device
+        self.max_persons = max_persons or cfg.track.max_persons
+        self.img_hw = tuple(cfg.model.image_size)
+        self.aspect_ratio = self.img_hw[1] / self.img_hw[0]
+        self.crop_dtype = torch_dtype(cfg.model.dtype)
+        tcfg = cfg.track
+        self.recover = tcfg.clip_recover and tcfg.max_recovered > 0
+        self.num_slots = self.max_persons + (tcfg.max_recovered
+                                             if self.recover else 0)
+        self.num_joints = cfg.model.num_joints
+        self.pose_model = pose_model.to(device).eval()
+        self.flow_model = flow_model.to(device).eval()
+
+    # ---- stage 2 building blocks
+    def _pose_heatmaps(self, crops):
+        """(M, h, w, 3) crops -> flip-merged heatmaps (M, h/4, w/4, K)."""
+        x = crops.permute(0, 3, 1, 2)
+        m = x.shape[0]
+        if self.cfg.test.flip_test:
+            hm = self.pose_model(torch.cat([x, x.flip(3)])).permute(0, 2, 3, 1)
+            return merge_flip_test(hm[:m], hm[m:], COCO_FLIP_PAIRS,
+                                   shift=self.cfg.test.shift_heatmap)
+        return self.pose_model(x).permute(0, 2, 3, 1)
+
+    def _pose_on_crops(self, crops, centers, scales, det_scores):
+        """crops (N, h, w, 3) -> preds (N, K, 2), maxvals (N, K), scores (N,)."""
+        hm = _chunked_apply(self._pose_heatmaps, crops,
+                            self.cfg.track.pose_chunk)
+        preds, maxvals = get_final_preds(
+            hm, centers, scales, post_process=self.cfg.test.post_process,
+            blur_kernel=self.cfg.test.blur_kernel)
+        return preds, maxvals, rescore(det_scores, maxvals,
+                                       self.cfg.test.in_vis_thre)
+
+    def _crop(self, frames, frame_idx, centers, scales):
+        return crop_frames(frames, frame_idx, centers, scales, self.img_hw,
+                           IMAGENET_MEAN, IMAGENET_STD,
+                           out_dtype=self.crop_dtype)
+
+    # ---- stage 3: detector-miss recovery
+    def _recovery_pass(self, frames, preds, valid, scores, det_boxes, flows,
+                       frame_valid, real_frames, seed):
+        """Emit flow-propagated boxes for OKS-unmatched tracks, pose the
+        clip-wide top-budget boxes in one batch, scatter them back to the
+        (F, R) recovery slots. ``seed`` = (joints, valid, scores, ages) over
+        the P + R slots at frame 0; frame 0's step propagates by identity
+        and does not age the seed (the previous clip counted that frame)."""
+        tcfg = self.cfg.track
+        dev = preds.device
+        f, p = valid.shape
+        r = tcfg.max_recovered
+        t_slots = p + r
+        budget = min(f * r, max(r, int(np.ceil(f * tcfg.recover_budget))))
+        neg = float("-inf")
+        slot_ids = torch.arange(t_slots, device=dev)
+        zero_ages = torch.zeros(p, dtype=torch.int32, device=dev)
+        thr = tcfg.track_oks_thre
+
+        def gen_core(carry, dj, dv, ds, dbox, prop, fv_t, inc_t):
+            _, tv, ts, ta = carry
+            sim = oks_matrix(prop, pose_area(prop), dj, pose_area(dj))
+            assign = greedy_match(sim, thr, tv, dv)
+            row_matched = ((assign[None, :] == slot_ids[:, None])
+                           & (assign >= 0)[None, :]).any(1)
+            miss = tv & ~row_matched & (ta < tcfg.max_miss_age)
+            top_s, top_i = _top_k(torch.where(miss, ts, neg), r)
+            rec_v = torch.isfinite(top_s) & fv_t
+            rec_j = prop[top_i]
+            rec_s = ts[top_i]
+            rec_a = ta[top_i] + inc_t
+            rec_box = boxes_from_poses(rec_j, tcfg.box_expand)
+            if tcfg.box_nms_thre < 1.0:
+                iou = iou_matrix(rec_box, dbox)
+                rec_v = rec_v & ~((iou > tcfg.box_nms_thre)
+                                  & dv[None, :]).any(1)
+            carry = (torch.cat([dj, rec_j]), torch.cat([dv, rec_v]),
+                     torch.cat([ds, rec_s]), torch.cat([zero_ages, rec_a]))
+            return carry, (rec_box, rec_v, rec_s, rec_a)
+
+        with record_function("clip.recovery_scan"):
+            carry, out0 = gen_core(seed, preds[0], valid[0], scores[0],
+                                   det_boxes[0], seed[0], frame_valid[0], 0)
+            outs = [out0]
+            for t in range(1, f):
+                prop = propagate_poses(carry[0], flows[t - 1])
+                carry, out_t = gen_core(carry, preds[t], valid[t], scores[t],
+                                        det_boxes[t], prop, frame_valid[t], 1)
+                outs.append(out_t)
+            rec_box, rec_v, rec_s, rec_ages = (torch.stack(x)
+                                               for x in zip(*outs))
+
+        # clip-wide budgeted selection -> one crop launch, one pose batch
+        with record_function("clip.recovery_pose"):
+            k = preds.shape[2]
+            flat_s = torch.where(rec_v.reshape(-1),
+                                 rec_s.reshape(-1).float(), neg)
+            g_s, g_idx = _top_k(flat_s, budget)
+            sel_valid = torch.isfinite(g_s)
+            if real_frames is not None:
+                # the budget of the real frame count; top-k is sorted, so a
+                # rank mask reproduces the unpadded run's smaller selection
+                eff = min(f * r, max(r, int(np.ceil(
+                    np.float32(real_frames)
+                    * np.float32(tcfg.recover_budget)))))
+                sel_valid = sel_valid & (torch.arange(budget, device=dev)
+                                         < eff)
+            sel_box = rec_box.reshape(-1, 4)[g_idx]
+            sel_score = rec_s.reshape(-1)[g_idx]
+            sel_c, sel_sc = _box_xyxy_to_center_scale(sel_box,
+                                                      self.aspect_ratio)
+            crops = self._crop(frames, g_idx // r, sel_c, sel_sc)
+            preds2, maxvals2, scores2 = self._pose_on_crops(
+                crops, sel_c, sel_sc, sel_score)
+            valid2 = sel_valid & (scores2 >= tcfg.pose_score_thre)
+
+        # invalid selections write zeros, so padded and unpadded runs give
+        # identical arrays, not only identical valid masks
+        def scatter(values, shape, dtype):
+            out = torch.zeros(shape, dtype=dtype, device=dev)
+            out[g_idx] = values
+            return out
+
+        sv = sel_valid
+        rec_preds = scatter(torch.where(sv[:, None, None], preds2, 0.0),
+                            (f * r, k, 2), torch.float32)
+        rec_maxvals = scatter(torch.where(sv[:, None], maxvals2, 0.0),
+                              (f * r, k), torch.float32)
+        rec_scores = scatter(torch.where(sv, scores2, 0.0), (f * r,),
+                             torch.float32)
+        rec_valid = scatter(valid2, (f * r,), torch.bool)
+        return (rec_preds.reshape(f, r, k, 2), rec_maxvals.reshape(f, r, k),
+                rec_scores.reshape(f, r), rec_valid.reshape(f, r), rec_ages)
+
+    # ---- the clip program
+    def _flows(self, frames):
+        """Stage 1: (F, H, W, 3) frames -> (F-1, H, W, 2) flow of each pair.
+        FlowNet needs /64 sizes, so the flow branch resizes and
+        postprocess_flow rescales the components back."""
+        cfg = self.cfg
+        h, w = frames.shape[1], frames.shape[2]
+        net_hw = (-(-h // 64) * 64, -(-w // 64) * 64)
+        flow_in = (frames if net_hw == (h, w)
+                   else resize_bilinear(frames.float(), net_hw))
+        pairs = preprocess_pair(flow_in[:-1], flow_in[1:], cfg.flow.rgb_max)
+        flow_q = _chunked_apply(
+            lambda x: self.flow_model(x.permute(0, 3, 1, 2)),
+            pairs, cfg.track.flow_chunk).permute(0, 2, 3, 1)
+        return postprocess_flow(flow_q, cfg.flow.variant, (h, w),
+                                cfg.flow.div_flow)
+
+    def _clip(self, frames, centers, scales, det_scores, det_valid,
+              det_boxes, frame_valid, seed_joints, seed_valid, seed_scores,
+              seed_ages, seed_ids, next_id0, real_frames=None):
+        cfg, tcfg = self.cfg, self.cfg.track
+        f, h, w, _ = frames.shape
+        p = centers.shape[1]
+        dev = frames.device
+
+        # 1. flow on all pairs, one call
+        with record_function("clip.flow"):
+            flows = self._flows(frames) if f > 1 else torch.zeros(
+                (0, h, w, 2), device=dev)
+
+        # 2. pose on all detector persons of all frames: one crop launch
+        with record_function("clip.pose"):
+            frame_idx = torch.arange(f, device=dev).repeat_interleave(p)
+            centers_flat = centers.reshape(f * p, 2)
+            scales_flat = scales.reshape(f * p, 2)
+            crops = self._crop(frames, frame_idx, centers_flat, scales_flat)
+            preds, maxvals, scores = self._pose_on_crops(
+                crops, centers_flat, scales_flat, det_scores.reshape(f * p))
+        preds = preds.reshape(f, p, -1, 2)
+        maxvals = maxvals.reshape(f, p, -1)
+        scores = scores.reshape(f, p)
+        valid = det_valid & (scores >= tcfg.pose_score_thre)
+
+        # 3. detector-miss recovery (second, budgeted pose pass)
+        ages = torch.zeros((f, p), dtype=torch.int32, device=dev)
+        if self.recover:
+            rec_seed = (seed_joints, seed_valid, seed_scores.float(),
+                        seed_ages.to(torch.int32))
+            rec_preds, rec_maxvals, rec_scores, rec_valid, rec_ages = \
+                self._recovery_pass(frames, preds, valid, scores, det_boxes,
+                                    flows, frame_valid, real_frames, rec_seed)
+            preds = torch.cat([preds, rec_preds], dim=1)
+            maxvals = torch.cat([maxvals, rec_maxvals], dim=1)
+            scores = torch.cat([scores, rec_scores], dim=1)
+            valid = torch.cat([valid, rec_valid], dim=1)
+            ages = torch.cat([ages, rec_ages], dim=1)
+
+        # 4. the id chain; frame 0 matches the seed by identity propagation
+        thr = tcfg.track_oks_thre
+        with record_function("clip.id_scan"):
+            sim0 = oks_matrix(seed_joints, pose_area(seed_joints), preds[0],
+                              pose_area(preds[0]))
+            assign0 = greedy_match(sim0, thr, seed_valid, valid[0])
+            ids, nid = _assign_ids(assign0, valid[0],
+                                   seed_ids.to(torch.int32).clamp(min=0),
+                                   next_id0.to(torch.int32))
+            all_ids = [ids]
+            for t in range(1, f):
+                prop = propagate_poses(preds[t - 1], flows[t - 1])
+                sim = oks_matrix(prop, pose_area(prop), preds[t],
+                                 pose_area(preds[t]))
+                assign = greedy_match(sim, thr, valid[t - 1], valid[t])
+                ids, nid = _assign_ids(assign, valid[t], ids.clamp(min=0),
+                                       nid)
+                all_ids.append(ids)
+            all_ids = torch.stack(all_ids)
+        # the next clip's seed: the last REAL frame's live tracks
+        last = (real_frames if real_frames is not None else f) - 1
+        seed_out = (preds[last], valid[last], scores[last], ages[last],
+                    torch.where(valid[last], all_ids[last], 0), nid)
+        return preds, maxvals, scores, all_ids, valid, seed_out
+
+    def empty_seed(self):
+        """No live tracks, next global id 0: (joints (T, K, 2), valid (T,),
+        scores (T,), ages (T,), ids (T,), next_id ()) over T slots."""
+        t, k, dev = self.num_slots, self.num_joints, self.device
+        return (torch.zeros((t, k, 2), device=dev),
+                torch.zeros((t,), dtype=torch.bool, device=dev),
+                torch.zeros((t,), device=dev),
+                torch.zeros((t,), dtype=torch.int32, device=dev),
+                torch.zeros((t,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
+                det_scores: np.ndarray, det_valid: np.ndarray,
+                frame_valid: Optional[np.ndarray] = None,
+                frame_offset: int = 0):
+        """Host prep and copy to the device: the argument tuple of
+        run_prepared. ``frame_offset`` is the clip's first global frame
+        index, so keyframe masking follows the video's cadence."""
+        f, p = det_scores.shape
+        if frame_valid is None:
+            frame_valid = np.ones((f,), bool)
+        k = max(1, self.cfg.track.keyframe_interval)
+        if k > 1:
+            det_valid = det_valid & (
+                (np.arange(f) + frame_offset)[:, None] % k == 0)
+        centers = np.zeros((f, p, 2), np.float32)
+        scales = np.full((f, p, 2), 1e-3, np.float32)
+        boxes_xyxy = np.zeros((f, p, 4), np.float32)
+        for t in range(f):
+            # clamp only w/h: padded zero boxes would give zero scale
+            boxes_t = np.concatenate(
+                [det_boxes[t][:, :2], np.maximum(det_boxes[t][:, 2:], 1e-3)],
+                axis=1)
+            c, s = batched_box_to_center_scale(boxes_t, self.aspect_ratio)
+            centers[t], scales[t] = c, s
+            boxes_xyxy[t] = np.concatenate(
+                [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
+        dev = self.device
+
+        def put(a, dtype=None):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        return (put(frames), put(centers), put(scales),
+                put(det_scores, torch.float32), put(det_valid, torch.bool),
+                put(boxes_xyxy), put(frame_valid, torch.bool))
+
+    @torch.inference_mode()
+    def run_prepared(self, device_args, budget_frames: Optional[int] = None,
+                     seed=None):
+        """Track a prepared clip; returns device tensors (preds, maxvals,
+        scores, ids, valid, seed_out), where seed_out seeds the next
+        (one-frame-overlapping) clip. ``budget_frames``: the real frame
+        count of a clip padded with invalid frames."""
+        if seed is None:
+            seed = self.empty_seed()
+        return self._clip(*device_args, *seed, real_frames=budget_frames)
+
+    @staticmethod
+    def to_host(device_out):
+        """Device result -> dict of numpy arrays (ids -1 where invalid)."""
+        preds, maxvals, scores, ids, valid, _seed = device_out
+        valid = valid.cpu().numpy()
+        return {"joints": preds.cpu().numpy(),
+                "maxvals": maxvals.cpu().numpy(),
+                "scores": scores.cpu().numpy(),
+                "ids": np.where(valid, ids.cpu().numpy(), -1),
+                "valid": valid}
+
+    def track_clip(self, frames: np.ndarray, det_boxes: np.ndarray,
+                   det_scores: np.ndarray, det_valid: np.ndarray, seed=None,
+                   frame_offset: int = 0, return_seed: bool = False):
+        """frames (F, H, W, 3) uint8 or float32; det_boxes (F, P, 4) xywh
+        (padded); det_scores, det_valid (F, P). Returns numpy arrays over
+        T = P + max_recovered slots: joints (F, T, K, 2), maxvals (F, T, K),
+        scores (F, T), ids (F, T) (-1 = invalid), valid (F, T). With
+        ``return_seed``, also the device seed for the next clip, whose
+        ``frame_offset`` is its first global frame index."""
+        args = self.prepare(frames, det_boxes, det_scores, det_valid,
+                            frame_offset=frame_offset)
+        device_out = self.run_prepared(args, seed=seed)
+        out = self.to_host(device_out)
+        return (out, device_out[5]) if return_seed else out
+
+
+def pad_detections(per_frame_boxes, per_frame_scores, max_persons: int):
+    """Ragged per-frame detections -> (F, P, 4), (F, P), (F, P) padded,
+    keeping the highest-scoring ``max_persons`` of a frame."""
+    f = len(per_frame_boxes)
+    boxes = np.zeros((f, max_persons, 4), np.float32)
+    scores = np.zeros((f, max_persons), np.float32)
+    valid = np.zeros((f, max_persons), bool)
+    for t in range(f):
+        b = np.asarray(per_frame_boxes[t], np.float32).reshape(-1, 4)
+        s = np.asarray(per_frame_scores[t], np.float32).reshape(-1)
+        n = min(len(b), max_persons)
+        if len(b) > max_persons:
+            order = np.argsort(-s)[:max_persons]
+            b, s = b[order], s[order]
+        boxes[t, :n] = b[:n]
+        scores[t, :n] = s[:n]
+        valid[t, :n] = True
+    return boxes, scores, valid

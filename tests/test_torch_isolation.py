@@ -1,0 +1,134 @@
+"""The port's boundaries: no jax in its imports, no CPU fallback for CUDA.
+
+These run on a machine without CUDA, where every CUDA entry point must
+refuse with RuntimeError instead of running the plain versions on the CPU,
+while CPU tensors take the plain versions and launch nothing.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from flowtrack_tpu.config import Config
+from flowtrack_tpu_torch import kernels
+from flowtrack_tpu_torch.ops import correlation as tcorr
+from flowtrack_tpu_torch.ops import crop as tcrop
+from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_MODULES = ["flowtrack_tpu_torch"] + sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (REPO / "flowtrack_tpu_torch").rglob("*.py"))
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter imports every module of the port (and runs its
+    CPU path once) without jax, flax or optax entering sys.modules."""
+    code = (
+        "import importlib, sys\n"
+        f"mods = {PORT_MODULES!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from flowtrack_tpu_torch.ops.crop import crop_resize_normalize\n"
+        "crop_resize_normalize(torch.zeros(8, 8, 3), torch.ones(1, 2),\n"
+        "                      torch.ones(1, 2), (4, 4))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(PORT_MODULES) >= 20
+    assert proc.stdout.split()[0] == str(len(PORT_MODULES))
+
+
+def test_port_ships_with_the_package_config():
+    """The port is a namespace package (no top-level ``__init__.py``), so
+    ``find_packages`` with pyproject's ``flowtrack_tpu*`` still finds only
+    the reference, while the pyproject build, which finds namespace packages
+    by default, ships the port's subpackages and its CUDA sources."""
+    import tomllib
+
+    from setuptools import find_namespace_packages, find_packages
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        setup = tomllib.load(f)["tool"]["setuptools"]
+    find = setup["packages"]["find"]
+    assert find.get("namespaces", True)
+    shipped = find_namespace_packages(where=REPO, include=find["include"])
+    for mod in PORT_MODULES:
+        pkg = mod if (REPO / mod.replace(".", "/")).is_dir() else \
+            mod.rpartition(".")[0]
+        assert pkg in shipped, pkg
+    assert not any(p.startswith("flowtrack_tpu_torch")
+                   for p in find_packages(where=REPO, include=find["include"]))
+    assert setup["package-data"]["flowtrack_tpu_torch"] == ["csrc/*.cu"]
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+def test_clip_tracker_on_cuda_raises_without_cuda():
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClipTracker(Config(), torch.nn.Identity(), torch.nn.Identity(),
+                    device="cuda")
+
+
+def test_kernel_loader_raises_without_cuda():
+    """Asked to build or load, the loader refuses; it never hands back the
+    plain versions."""
+    _require_no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        kernels.build()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        kernels.library()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only; they do not fall back."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcrop.crop_frames_cuda(torch.zeros(1, 8, 8, 3),
+                               torch.zeros(1, dtype=torch.int32),
+                               torch.ones(1, 2), torch.ones(1, 2), (4, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcorr.correlation_cuda(torch.zeros(1, 4, 5, 5), torch.zeros(1, 4, 5, 5),
+                               2, 1)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """Dispatch by device: CPU tensors give the plain results and count no
+    kernel launch."""
+    before = (tcrop.crop_frames_cuda.launches,
+              tcorr.correlation_cuda.launches)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.uniform(0, 255, (2, 16, 20, 3))
+                              .astype(np.float32))
+    args = (frames, torch.tensor([1, 0]), torch.tensor([[8.0, 8.0]] * 2),
+            torch.tensor([[0.06, 0.08]] * 2), (8, 6))
+    torch.testing.assert_close(tcrop.crop_frames(*args),
+                               tcrop.crop_frames_plain(*args), rtol=0, atol=0)
+    f1 = torch.from_numpy(rng.normal(size=(1, 6, 7, 4)).astype(np.float32))
+    torch.testing.assert_close(tcorr.correlation(f1, f1, 2, 1),
+                               tcorr.correlation_plain(f1, f1, 2, 1),
+                               rtol=0, atol=0)
+    assert (tcrop.crop_frames_cuda.launches,
+            tcorr.correlation_cuda.launches) == before
+
+
+def test_library_path_tracks_the_sources():
+    """The built library's name carries the hash of the sources and flags,
+    under build/flowtrack_tpu_torch/, so an edited source is rebuilt."""
+    path = kernels.library_path()
+    assert path.parent == REPO / "build" / "flowtrack_tpu_torch"
+    assert path.name.startswith("libflowtrack_kernels_")
+    assert set(kernels.SOURCES) == {p.name for p in kernels.CSRC.glob("*.cu")}
