@@ -2,24 +2,37 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, ``flowtrack_tpu_torch.tracking.clip_pipeline.
-ClipTracker`` with PoseResNet-50 at 256x192 (flip test, detector-miss
-recovery, cross-clip seed) and FlowNetC, through the port's hand-written
-CUDA kernels, in phases that each print one line:
+Drives the port's two paths through ``flowtrack_tpu_torch.tracking.
+clip_pipeline.ClipTracker`` (flip test, detector-miss recovery, cross-clip
+seed), through the port's hand-written CUDA kernels: slice 1, PoseResNet-50
+at 256x192 with FlowNetC; slice 2, the paper's full pipeline
+(experiments/flowtrack_posetrack_flownet2.yaml), PoseResNet-152 at 256x192
+with the FlowNet2 cascade. Phases that each print one or more lines:
 
   1. device: refuses to run without CUDA; prints the card's name and power
      limit as nvidia-smi reports them;
-  2. build: compiles the kernels in flowtrack_tpu_torch/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (max error against a stated tolerance, times);
-  4. slice: three chained 16-frame 384x640 clips at full width with seeded
-     random weights, both kernels' launch counts read around the run, and
-     frames/s after a warm-up clip; then one clip under torch.profiler
-     (device busy and idle share, host syncs, time per clip.* stage);
-  5. tracking: planted-heatmap pose and constant-flow stubs; ids must stay
-     stable across clip boundaries and survive a dropped detection;
-  6. precision: the bf16 pose and flow nets against float32 ones with the
-     same weights, at full width.
+  2. build: compiles the kernels in flowtrack_tpu_torch/csrc with nvcc, one
+     process per source;
+  3. kernels: each kernel (crop, correlation, resample2d) against its plain
+     PyTorch version on the card at the paths' shapes (max error against a
+     stated tolerance, times);
+  4. slice: three chained 16-frame 384x640 clips of slice 1 at full width
+     with seeded random weights, the crop and correlation launch counts
+     read around the run, and frames/s after a warm-up clip; then one clip
+     under torch.profiler (device busy and idle share, host syncs, time per
+     clip.* stage, each kernel's device time);
+  5. flownet2: the same for slice 2 on 360x640 frames (the flow net runs at
+     the /64-rounded 384x640, its fused flow shrinks back through the
+     antialiased resize); the crop, correlation and warp kernels must all
+     launch;
+  6. tracking: planted-heatmap pose and constant-flow stubs, under both
+     flow conventions (FlowNetC's quarter-resolution flow / div_flow, and
+     the FlowNet2 cascade's full-resolution flow on 360x640 frames); ids
+     must stay stable across clip boundaries and survive a dropped
+     detection, and equal the port's plain run on the CPU;
+  7. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
+     float32 glue) against float32 ones with the same weights, at full
+     width.
 
 Then a JSON line with each kernel's numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -38,8 +51,9 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-# main-path shapes
+# path shapes: slice 1 at 384x640, slice 2 (FlowNet2) at 360x640
 FRAMES, FRAME_H, FRAME_W = 16, 384, 640
+FN2_H, FN2_W = 360, 640
 PERSONS, RECOVERED = 8, 4
 CLIPS = 3
 SEED = 0
@@ -51,11 +65,21 @@ SEED = 0
 CROP_F32_TOL = 1e-4
 CROP_BF16_TOL = 2.0 ** -6
 CORR_TOL = 1e-4
+# resample2d: K4's contract against the same operations in the same order,
+# each rounded once in the image dtype: 4 float32 eps, or 2 bf16 ulps, of
+# the image's max |value|; integer flows copy taps and must match bitwise
+WARP_F32_ULPS = 4
+WARP_BF16_ULPS = 2
 # bf16 compute against float32 at full width, same random weights: max
 # |diff| over the float32 output's max |value| (measured on an NVIDIA H100
 # 80GB HBM3 at 700 W: pose 1.5%, flow 0.5%)
 POSE_BF16_REL_TOL = 0.05
 FLOW_BF16_REL_TOL = 0.02
+# FlowNet2 (float32 glue) in bf16 against float32, same metric: each stage's
+# flow moves the next stage's warp, so the cascade compounds bf16 rounding.
+# CPU rehearsal with random weights, 2 pairs: 9.9% and 9.6% at 128x192,
+# 11.4% and 9.4% at 192x320 (two seeds); 2.2x the worst of those
+FLOWNET2_BF16_REL_TOL = 0.25
 
 
 def log(phase: str, **fields) -> None:
@@ -204,8 +228,77 @@ def phase_kernels():
                     "source": "flowtrack_tpu_torch/csrc/correlation.cu",
                     "replaces": "flowtrack_tpu/ops/correlation.py:73",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    results.append(check_warp(dev, rng))
     torch.cuda.synchronize()
     return results
+
+
+def smooth_flow(rng, n, h, w, amplitude, dev):
+    """Cascade-like flow (n, 2, h, w): a random 6x10 grid of displacements
+    within +-amplitude px, bilinearly enlarged."""
+    coarse = torch.as_tensor(rng.uniform(-amplitude, amplitude, (n, 2, 6, 10)),
+                             dtype=torch.float32, device=dev)
+    return torch.nn.functional.interpolate(coarse, size=(h, w),
+                                           mode="bilinear",
+                                           align_corners=False).contiguous()
+
+
+def check_warp(dev, rng):
+    """K3/K4: the FlowNet2 cascade's dense warp of one clip's 15 pairs at
+    the 384x640 net size, against resample2d_plain in each regime."""
+    from flowtrack_tpu_torch.ops import warp as warp_mod
+
+    n, c, h, w = FRAMES - 1, 3, FRAME_H, FRAME_W
+    img = torch.as_tensor(rng.normal(0, 0.3, (n, c, h, w)),
+                          dtype=torch.float32, device=dev)
+    smooth = smooth_flow(rng, n, h, w, 5.0, dev)
+    big = torch.as_tensor(rng.uniform(-30, 30, (n, 2, h, w)),
+                          dtype=torch.float32, device=dev)
+    # |u|, |v| >= 700 > 640: every sample coordinate clamps to an edge
+    clamped = torch.as_tensor(rng.choice([-1.0, 1.0], (n, 2, h, w))
+                              * rng.uniform(700, 3000, (n, 2, h, w)),
+                              dtype=torch.float32, device=dev)
+    integer = torch.as_tensor(rng.integers(-6, 7, (n, 2, h, w)),
+                              dtype=torch.float32, device=dev)
+    rag_img = torch.as_tensor(rng.normal(0, 0.3, (2, c, 13, 27)),
+                              dtype=torch.float32, device=dev)
+    rag_flow = torch.as_tensor(rng.uniform(-5, 5, (2, 2, 13, 27)),
+                               dtype=torch.float32, device=dev)
+    bf16 = torch.bfloat16
+    f32_ulp = torch.finfo(torch.float32).eps
+    bf16_ulp = 2.0 ** -8     # half the spacing above 1, as the eps above
+    cases = [("smooth", img, smooth, WARP_F32_ULPS * f32_ulp),
+             ("large", img, big, WARP_F32_ULPS * f32_ulp),
+             ("clamped", img, clamped, WARP_F32_ULPS * f32_ulp),
+             ("integer", img, integer, 0.0),
+             ("bf16", img.to(bf16), smooth.to(bf16), WARP_BF16_ULPS * bf16_ulp),
+             ("bf16_integer", img.to(bf16), integer.to(bf16), 0.0),
+             ("ragged_13x27", rag_img, rag_flow, WARP_F32_ULPS * f32_ulp),
+             ("ragged_bf16", rag_img.to(bf16), rag_flow,
+              WARP_BF16_ULPS * bf16_ulp)]
+    worst = 0.0
+    for name, im, fl, ulps in cases:
+        got = warp_mod.resample2d_cuda(im, fl)
+        want = warp_mod.resample2d_plain(im, fl)
+        torch.cuda.synchronize()
+        require(got.dtype == im.dtype and got.shape == im.shape,
+                f"resample2d {name}: {got.dtype} {tuple(got.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = ulps * im.float().abs().max().item()
+        require(err <= tol, f"resample2d {name}: max err {err} > {tol}")
+        worst = max(worst, err)
+        log("kernels", kernel="resample2d", case=name, img=str(im.dtype),
+            flow=str(fl.dtype), shape="x".join(map(str, im.shape)),
+            max_abs_err=err, tol=tol)
+    # timed at the path's types: float32 glue, cascade-like flow
+    ms = time_ms(lambda: warp_mod.resample2d_cuda(img, smooth), 50)
+    plain_ms = time_ms(lambda: warp_mod.resample2d_plain(img, smooth), 5)
+    log("kernels", kernel="resample2d", ms=ms, plain_ms=plain_ms)
+    return {"name": "resample2d", "route": "cuda",
+            "source": "flowtrack_tpu_torch/csrc/resample2d.cu",
+            "replaces": "flowtrack_tpu/ops/warp.py:344 and "
+                        "flowtrack_tpu/ops/warp.py:215",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def video_detections(rng, n_frames, persons, h, w, vel, drop=()):
@@ -241,22 +334,30 @@ def run_clips(tracker, frames, boxes, scores, valid, clip_len):
     return outs
 
 
-def phase_slice(card):
-    """Full width: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
-    from flowtrack_tpu.config import get_config
-    from flowtrack_tpu_torch.models.flownet import get_flow_net
-    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+def kernel_counters():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
     from flowtrack_tpu_torch.ops import correlation as corr_mod
     from flowtrack_tpu_torch.ops import crop as crop_mod
+    from flowtrack_tpu_torch.ops import warp as warp_mod
+
+    return {"crop_resize_normalize": crop_mod.crop_frames_cuda,
+            "correlation": corr_mod.correlation_cuda,
+            "resample2d": warp_mod.resample2d_cuda}
+
+
+def drive_path(tag, card, cfg, frame_hw, path_kernels):
+    """Full width, seeded random weights: one warm-up clip, then CLIPS
+    chained FRAMES-frame clips with every launch count set to 0 just before
+    and read just after; each kernel of ``path_kernels`` must have launched.
+    Checks the outputs' shapes and finiteness, logs frames/s, then profiles
+    one clip. Returns the launch counts of the run."""
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
     from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
 
-    base = get_config("coco_res50_256x192")
-    cfg = replace(base, flow=replace(base.flow, variant="flownet_c",
-                                     use_pallas_corr=True),
-                  track=replace(base.track, max_persons=PERSONS,
-                                max_recovered=RECOVERED))
     require(cfg.model.dtype == cfg.flow.dtype == "bfloat16", "bf16 config")
     require(cfg.test.flip_test and cfg.track.clip_recover, "flip + recovery")
+    h, w = frame_hw
     gen = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -265,24 +366,25 @@ def phase_slice(card):
                           max_persons=PERSONS, device=dev)
     rng = np.random.default_rng(SEED)
     n_frames = CLIPS * (FRAMES - 1) + 1
-    video = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W, 3), np.uint8)
+    video = rng.integers(0, 256, (n_frames, h, w, 3), np.uint8)
     boxes, scores, valid = video_detections(
-        rng, n_frames, PERSONS, FRAME_H, FRAME_W, (2.0, 1.0),
+        rng, n_frames, PERSONS, h, w, (2.0, 1.0),
         drop=[(2, 3), (FRAMES + 4,), (FRAMES - 1,)])
-    log("slice", setup_s=f"{time.perf_counter() - t0:.1f}")
+    log(tag, setup_s=f"{time.perf_counter() - t0:.1f}")
 
     warm = run_clips(tracker, video[:FRAMES], boxes, scores, valid, FRAMES)
     torch.cuda.synchronize()
-    crop_mod.crop_frames_cuda.launches = 0
-    corr_mod.correlation_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     outs = run_clips(tracker, video, boxes, scores, valid, FRAMES)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"crop_resize_normalize": crop_mod.crop_frames_cuda.launches,
-                "correlation": corr_mod.correlation_cuda.launches}
-    require(all(launches.values()),
-            f"a kernel of the path never launched: {launches}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    require(all(launches[k] for k in path_kernels),
+            f"{tag}: a kernel of the path never launched: {launches}")
     slots = PERSONS + RECOVERED
     for out in warm + outs:
         require(out["joints"].shape == (FRAMES, slots, 17, 2),
@@ -294,18 +396,60 @@ def phase_slice(card):
         for key in ("joints", "maxvals", "scores"):
             require(np.isfinite(out[key]).all(), f"non-finite {key}")
     fps = CLIPS * FRAMES / elapsed
-    log("slice", clips=len(outs), frames_per_clip=FRAMES,
-        frame_hw=f"{FRAME_H}x{FRAME_W}", persons=PERSONS, seconds=elapsed,
-        frames_per_s=fps, launches=launches, card=f"'{card}'",
+    log(tag, clips=len(outs), frames_per_clip=FRAMES, frame_hw=f"{h}x{w}",
+        persons=PERSONS, seconds=elapsed, frames_per_s=fps,
+        launches=launches, card=f"'{card}'",
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    phase_profile(tracker, video, boxes, scores, valid)
+    phase_profile(tag, tracker, video, boxes, scores, valid)
     return launches
 
 
-def phase_profile(tracker, video, boxes, scores, valid):
+def phase_slice(card):
+    """Slice 1: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
+    from flowtrack_tpu.config import get_config
+
+    base = get_config("coco_res50_256x192")
+    cfg = replace(base, flow=replace(base.flow, variant="flownet_c",
+                                     use_pallas_corr=True),
+                  track=replace(base.track, max_persons=PERSONS,
+                                max_recovered=RECOVERED))
+    return drive_path("slice", card, cfg, (FRAME_H, FRAME_W),
+                      ("crop_resize_normalize", "correlation"))
+
+
+def flownet2_config():
+    """Slice 2's config: the flowtrack_posetrack preset (R152 256x192, bf16)
+    with the flow section of experiments/flowtrack_posetrack_flownet2.yaml,
+    built without PyYAML (tests/test_torch_models.py pins the equality), the
+    yaml's track thresholds, and the smoke's traffic: 8 persons, 4
+    recovery slots."""
+    from flowtrack_tpu.config import get_config
+
+    base = get_config("flowtrack_posetrack")
+    return replace(
+        base,
+        flow=replace(base.flow, variant="flownet2", dtype="bfloat16",
+                     use_pallas_corr=True, use_pallas_warp=True,
+                     pallas_warp_impl="matmul", glue_dtype="float32"),
+        track=replace(base.track, max_persons=PERSONS,
+                      max_recovered=RECOVERED))
+
+
+def phase_flownet2(card):
+    """Slice 2: R152 256x192 + FlowNet2 (bf16 nets, float32 glue) on 360x640
+    frames: the crop, correlation and warp kernels all run."""
+    cfg = flownet2_config()
+    require(cfg.model.num_layers == 152 and cfg.flow.variant == "flownet2",
+            "R152 + FlowNet2")
+    return drive_path("flownet2", card, cfg, (FN2_H, FN2_W),
+                      ("crop_resize_normalize", "correlation", "resample2d"))
+
+
+def phase_profile(tag, tracker, video, boxes, scores, valid):
     """One clip under torch.profiler: wall time, device busy time and idle
     share, device events, host syncs, each clip.* stage's host ms, kernel ms
-    and device span ms, and the heaviest device ops."""
+    and device span ms, the port's kernels' device ms, and the heaviest
+    device ops."""
     from torch.profiler import ProfilerActivity, profile
 
     sl = slice(0, FRAMES)
@@ -337,11 +481,16 @@ def phase_profile(tracker, video, boxes, scores, valid):
     by_name = {}
     for e in device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total / 1e3
+    ours = {k: round(sum(v for name, v in by_name.items() if k in name), 3)
+            for k in ("crop_resize_normalize_kernel", "correlation_kernel",
+                      "resample2d_kernel")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log("profile", path=tag, wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1 - busy_ms / wall_ms, device_events=len(device),
         host_syncs=host_syncs, stages_host_kernel_span_ms=stages)
-    log("profile", top_device_ms=[(k, round(v, 3)) for k, v in top])
+    log("profile", path=tag, port_kernels_device_ms=ours)
+    log("profile", path=tag,
+        top_device_ms=[(k, round(v, 3)) for k, v in top])
 
 
 class PlantedPose(torch.nn.Module):
@@ -379,26 +528,47 @@ class ConstantFlow(torch.nn.Module):
         return self.vel.view(1, 2, 1, 1).expand(n, 2, h // 4, w // 4)
 
 
-def phase_tracking():
+class ConstantFullResFlow(torch.nn.Module):
+    """A flow net with the FlowNet2 cascade's convention: the true constant
+    motion at full resolution in pixels of the net's input, which is the
+    frames enlarged to the /64-rounded size."""
+
+    def __init__(self, vel, frame_hw, device):
+        super().__init__()
+        self.frame_hw = frame_hw
+        self.register_buffer("vel", torch.tensor(vel, device=device))
+
+    def forward(self, x):
+        n, _, h, w = x.shape
+        scale = torch.tensor([w / self.frame_hw[1], h / self.frame_hw[0]],
+                             device=x.device)
+        return (self.vel * scale).view(1, 2, 1, 1).expand(n, 2, h, w)
+
+
+def phase_tracking(variant, frame_hw):
     """Planted-heatmap pose + constant-flow stubs through the real crop
-    kernel, decode and scans: ids stable across clip boundaries and through
-    dropped detections, and equal to the port's plain run on the CPU."""
+    kernel, decode and scans, under ``variant``'s flow convention: ids
+    stable across clip boundaries and through dropped detections, and equal
+    to the port's plain run on the CPU."""
     from flowtrack_tpu.config import get_config
+    from flowtrack_tpu_torch.models.flownet import flow_output_is_full_res
     from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
 
     base = get_config("coco_res50_256x192")
     persons = 4
     cfg = replace(base, test=replace(base.test, flip_test=False),
+                  flow=replace(base.flow, variant=variant),
                   track=replace(base.track, max_persons=persons,
                                 max_recovered=RECOVERED))
     vel = (3.0, 1.5)
+    h, w = frame_hw
     rng = np.random.default_rng(SEED + 1)
     n_frames = CLIPS * (FRAMES - 1) + 1
-    video = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W, 3), np.uint8)
+    video = rng.integers(0, 256, (n_frames, h, w, 3), np.uint8)
     # 3 persons in 4 slots; person 0 missed inside clip 2, person 2 at the
     # boundary frame shared by clips 2 and 3
     boxes, scores, valid = video_detections(
-        rng, n_frames, 3, FRAME_H, FRAME_W, vel,
+        rng, n_frames, 3, h, w, vel,
         drop=[(FRAMES + FRAMES // 4,), (), (2 * (FRAMES - 1),)])
     pad = persons - 3
     boxes = np.concatenate([boxes, np.zeros((n_frames, pad, 4), np.float32)], 1)
@@ -408,9 +578,11 @@ def phase_tracking():
     results = {}
     for name in ("cuda", "cpu"):
         dev = torch.device(name)
+        flow = (ConstantFullResFlow(vel, frame_hw, dev)
+                if flow_output_is_full_res(variant)
+                else ConstantFlow(vel, cfg.flow.div_flow, dev))
         tracker = ClipTracker(cfg, PlantedPose(cfg.model.heatmap_size, dev),
-                              ConstantFlow(vel, cfg.flow.div_flow, dev),
-                              device=dev)
+                              flow, device=dev)
         results[name] = run_clips(tracker, video, boxes, scores, valid, FRAMES)
     torch.cuda.synchronize()
     for got, want in zip(results["cuda"], results["cpu"]):
@@ -439,7 +611,8 @@ def phase_tracking():
                     raise AssertionError(f"person {j} changed id at frame "
                                          f"{g}: {person_ids[j]} -> {pid}")
     require(len(set(person_ids.values())) == 3, person_ids)
-    log("tracking", clips=len(results["cuda"]), ids=person_ids,
+    log("tracking", flow=variant, frame_hw=f"{h}x{w}",
+        clips=len(results["cuda"]), ids=person_ids,
         recovered_frames=recovered, cpu_equal=True)
 
 
@@ -462,6 +635,10 @@ def phase_precision():
     flow16 = get_flow_net(flow_cfg, dev, gen)
     flow32 = get_flow_net(replace(flow_cfg, dtype="float32"), dev)
     flow32.load_state_dict(flow16.state_dict())
+    fn2_cfg = flownet2_config().flow
+    fn2_16 = get_flow_net(fn2_cfg, dev, gen)
+    fn2_32 = get_flow_net(replace(fn2_cfg, dtype="float32"), dev)
+    fn2_32.load_state_dict(fn2_16.state_dict())
     rng = np.random.default_rng(SEED + 2)
     crops = torch.as_tensor(rng.standard_normal((16, 3, 256, 192)),
                             dtype=torch.float32, device=dev)
@@ -472,23 +649,31 @@ def phase_precision():
     with torch.inference_mode():
         for name, m16, m32, x, tol in (
                 ("pose", pose16, pose32, crops, POSE_BF16_REL_TOL),
-                ("flow", flow16, flow32, pairs.contiguous(), FLOW_BF16_REL_TOL)):
+                ("flow", flow16, flow32, pairs.contiguous(), FLOW_BF16_REL_TOL),
+                ("flownet2", fn2_16, fn2_32, pairs.contiguous(),
+                 FLOWNET2_BF16_REL_TOL)):
             want = m32(x)
             err = ((m16(x) - want).abs().max() / want.abs().max()).item()
             torch.cuda.synchronize()
             require(err <= tol, f"{name} bf16 vs float32: {err} > {tol}")
             errs[name] = err
     log("precision", pose_rel_err=errs["pose"], pose_tol=POSE_BF16_REL_TOL,
-        flow_rel_err=errs["flow"], flow_tol=FLOW_BF16_REL_TOL)
+        flow_rel_err=errs["flow"], flow_tol=FLOW_BF16_REL_TOL,
+        flownet2_rel_err=errs["flownet2"],
+        flownet2_tol=FLOWNET2_BF16_REL_TOL)
 
 
 def main() -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches = phase_slice(card)
+    phase_slice(card)
     torch.cuda.synchronize()
-    phase_tracking()
+    # the kernels line reports the launches of this slice's path
+    launches = phase_flownet2(card)
+    torch.cuda.synchronize()
+    phase_tracking("flownet_c", (FRAME_H, FRAME_W))
+    phase_tracking("flownet2", (FN2_H, FN2_W))
     torch.cuda.synchronize()
     phase_precision()
     for k in kernels:

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface under ``build/flowtrack_tpu_torch/``
-beside the package, at first use and again whenever a source or a flag
-changes (the file name carries their hash). The library is loaded with
+The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+process per source, all started together, and linked into one shared
+library with a plain C interface under ``build/flowtrack_tpu_torch/`` beside
+the package, at first use and again whenever a source or a flag changes
+(the file name carries their hash). The library is loaded with
 ``ctypes``; each entry point launches on the stream it is given and returns
 the launch's ``cudaError_t``, which :func:`check` turns into an exception.
 
@@ -25,10 +26,10 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("crop.cu", "correlation.cu")
+SOURCES = ("crop.cu", "correlation.cu", "resample2d.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowtrack_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +37,7 @@ _SIGNATURES = {
                                  _F, _F, _F, _F, _F, _F, _F, _P, _I, _P],
     "ft_correlation_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P],
+    "ft_resample2d_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,11 +76,28 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(SOURCES, objs)]
+    failed = []
+    for src, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_name(f"{tag}.tmp")
+    proc = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, out)
     return out
 

@@ -1,14 +1,125 @@
-"""Sparse bilinear sampling of a flow field.
+"""Flow warping: the dense warp resample2d (kernels K3/K4), channelnorm, and
+the sparse sampling of a flow field.
 
-Port of ``flowtrack_tpu/ops/warp.py``: ``flow_gather`` and
-``_bilinear_sample_points`` (warp.py:555-590), the tracker's joint
-propagation primitive. The dense warps (``resample2d`` and the kernels K3
-and K4) belong to the FlowNet2 cascade, ROADMAP slice 2.
+Port of ``flowtrack_tpu/ops/warp.py``:
+
+* ``resample2d_plain`` is the plain twin of ``_bilinear_sample_clamp`` +
+  ``resample2d`` (warp.py:31-110). In place of the TPU kernels
+  ``_warp_kernel_mm`` (K3, :344) and ``_warp_kernel`` (K4, :215) there is
+  one CUDA kernel, ``csrc/resample2d.cu``, whose source note gives its bytes
+  and design. K3 and K4 are two formulations of one function, made because
+  a TPU has no gather; on the GPU a gather is the natural form, so one kernel
+  serves both ``pallas_warp_impl`` names, held to K4's contract (the XLA
+  path's value, bitwise at integer flows).
+* ``channelnorm`` (:549) is a plain float32 reduction, as in the reference.
+* ``flow_gather`` and ``_bilinear_sample_points`` (:555-590), the tracker's
+  joint propagation primitive.
+
+resample2d's contract: out[n, :, y, x] = img[n] sampled bilinearly at
+(x + u, y + v), coordinates clamped to [0, W-1] x [0, H-1], the 2x2 anchor
+clamped to (W-2, H-2) with the weights recomputed against it, weights in the
+image dtype, ``top = v00*(1-wx) + v01*wx`` (and ``bot``) then
+``top*(1-wy) + bot*wy``, each operation rounded in the image dtype. Forward
+only: training needs its backward.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel, or the wrapper raises.
 """
 
 from __future__ import annotations
 
 import torch
+
+from flowtrack_tpu_torch import kernels
+
+
+def resample2d_plain(img, flow):
+    """Plain PyTorch version: img (N, C, H, W) float32 or bfloat16, flow
+    (N, 2, H, W) -> (N, C, H, W) in img's dtype."""
+    n, c, h, w = img.shape
+    dt = img.dtype
+    if h == 1 and w == 1:
+        return img.clone()
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)
+    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    sx = (xs + flow[:, 0].float()).clamp(0.0, w - 1.0)
+    sy = (ys + flow[:, 1].float()).clamp(0.0, h - 1.0)
+    flat = img.reshape(n, c, h * w)
+
+    def tap(yi, xi):
+        idx = (yi * w + xi).reshape(n, 1, h * w).expand(n, c, h * w)
+        return flat.gather(2, idx).reshape(n, c, h, w)
+
+    def anchor(s, size):
+        """-> (anchor as long (N, H, W), weight (N, 1, H, W) in dt)"""
+        a = s.floor().clamp(max=size - 2.0)
+        return a.long(), (s - a).unsqueeze(1).to(dt)
+
+    def lerp(a, b, t):
+        return a * (1.0 - t) + b * t
+
+    if h == 1:   # one row: 1-D along x
+        x0, wx = anchor(sx, w)
+        return lerp(tap(0, x0), tap(0, x0 + 1), wx)
+    if w == 1:   # one column: 1-D along y
+        y0, wy = anchor(sy, h)
+        return lerp(tap(y0, 0), tap(y0 + 1, 0), wy)
+    x0, wx = anchor(sx, w)
+    y0, wy = anchor(sy, h)
+    top = lerp(tap(y0, x0), tap(y0, x0 + 1), wx)
+    bot = lerp(tap(y0 + 1, x0), tap(y0 + 1, x0 + 1), wx)
+    return lerp(top, bot, wy)
+
+
+def resample2d_cuda(img, flow):
+    """Launch the warp kernel. img (N, C, H, W) float32 or bfloat16, flow
+    (N, 2, H, W) float32 or bfloat16, both contiguous on one CUDA device ->
+    (N, C, H, W) in img's dtype."""
+    if img.device.type != "cuda" or flow.device != img.device:
+        raise RuntimeError(f"resample2d kernel needs CUDA tensors on one "
+                           f"device, got {img.device} and {flow.device}")
+    if img.dim() != 4 or flow.shape != (img.shape[0], 2, *img.shape[2:]):
+        raise ValueError(f"img must be (N, C, H, W) and flow (N, 2, H, W), "
+                         f"got {tuple(img.shape)} and {tuple(flow.shape)}")
+    floats = (torch.bfloat16, torch.float32)
+    if img.dtype not in floats or flow.dtype not in floats:
+        raise TypeError(f"img and flow must be bfloat16 or float32, got "
+                        f"{img.dtype} and {flow.dtype}")
+    if not (img.is_contiguous() and flow.is_contiguous()):
+        raise ValueError("img and flow must be contiguous")
+    n, c, h, w = img.shape
+    out = torch.empty_like(img)
+    if out.numel():
+        err = kernels.library().ft_resample2d_forward(
+            img.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
+            int(img.dtype == torch.bfloat16), int(flow.dtype == torch.bfloat16),
+            torch.cuda.current_stream(img.device).cuda_stream)
+        kernels.check(err, "resample2d")
+        resample2d_cuda.launches += 1
+    return out
+
+
+resample2d_cuda.launches = 0
+
+
+def resample2d_nchw(img, flow):
+    """The cascade's call: NCHW image and flow -> warped NCHW image."""
+    if img.device.type == "cpu":
+        return resample2d_plain(img, flow)
+    return resample2d_cuda(img.contiguous(), flow.contiguous())
+
+
+def resample2d(img, flow):
+    """Public entry, the reference's layout: img (N, H, W, C), flow
+    (N, H, W, 2) -> (N, H, W, C)."""
+    out = resample2d_nchw(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2))
+    return out.permute(0, 2, 3, 1)
+
+
+def channelnorm(x, eps: float = 0.0, dim: int = -1):
+    """L2 norm over the channel axis ``dim`` in float32, kept as a size-1
+    axis: (N, H, W, C) -> (N, H, W, 1) by default."""
+    return torch.sqrt(x.float().square().sum(dim, keepdim=True) + eps)
 
 
 def _bilinear_sample_points(img, sx, sy):

@@ -111,9 +111,11 @@ class ClipTracker:
     """Batched-clip FlowTrack on one device. All frames share one (H, W).
 
     ``pose_model``: (M, 3, h, w) crops -> (M, K, h/4, w/4) float32
-    heatmaps; ``flow_model``: (N, 6, H, W) pairs -> (N, 2, H/4, W/4)
-    quarter-resolution flow / div_flow (the port's PoseResNet and
-    FlowNetS/C). Both are put on ``device`` in eval mode."""
+    heatmaps (the port's PoseResNet). ``flow_model``: (N, 6, H, W) pairs ->
+    the quarter-resolution flow / div_flow (N, 2, H/4, W/4) of FlowNetS/C/SD,
+    or, when ``flow_output_is_full_res(cfg.flow.variant)``, the
+    full-resolution flow in pixels (N, 2, H, W) of the FlowNet2 cascades.
+    Both are put on ``device`` in eval mode."""
 
     def __init__(self, cfg: Config, pose_model, flow_model,
                  max_persons: Optional[int] = None, device="cuda"):
@@ -258,8 +260,11 @@ class ClipTracker:
     # ---- the clip program
     def _flows(self, frames):
         """Stage 1: (F, H, W, 3) frames -> (F-1, H, W, 2) flow of each pair.
-        FlowNet needs /64 sizes, so the flow branch resizes and
-        postprocess_flow rescales the components back."""
+        FlowNet needs /64 sizes, so the flow branch resizes the frames up to
+        the net size, and postprocess_flow brings the flow back to (H, W)
+        with its components rescaled: a quarter-resolution output is taken
+        times div_flow at 4x its size first, a full-resolution one (the
+        FlowNet2 cascades) as it is, shrunk by the antialiased resize."""
         cfg = self.cfg
         h, w = frames.shape[1], frames.shape[2]
         net_hw = (-(-h // 64) * 64, -(-w // 64) * 64)

@@ -12,7 +12,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from flowtrack_tpu.utils.torch_convert import reverse_flownet, reverse_pose_resnet
+from flowtrack_tpu.utils.torch_convert import (
+    reverse_flownet,
+    reverse_flownet2,
+    reverse_pose_resnet,
+)
 
 
 def _load(module: nn.Module, sd) -> nn.Module:
@@ -27,5 +31,12 @@ def load_pose_resnet(module: nn.Module, variables) -> nn.Module:
 
 
 def load_flownet(module: nn.Module, variables) -> nn.Module:
-    """Reference FlowNetS / FlowNetC variables -> the port's model."""
+    """Reference FlowNetS / C / SD / Fusion variables -> the port's model."""
     return _load(module, reverse_flownet(variables))
+
+
+def load_flownet2(module: nn.Module, variables) -> nn.Module:
+    """Reference FlowNet2 variables -> the port's FlowNet2, or, given the
+    subset of sub-nets they hold (``flownetc``, ``flownets_1`` and for CSS
+    ``flownets_2``), its FlowNet2-CS / CSS."""
+    return _load(module, reverse_flownet2(variables))

@@ -17,6 +17,7 @@ from flowtrack_tpu.config import Config
 from flowtrack_tpu_torch import kernels
 from flowtrack_tpu_torch.ops import correlation as tcorr
 from flowtrack_tpu_torch.ops import crop as tcrop
+from flowtrack_tpu_torch.ops import warp as twarp
 from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
 
 REPO = Path(__file__).resolve().parents[1]
@@ -103,13 +104,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         tcorr.correlation_cuda(torch.zeros(1, 4, 5, 5), torch.zeros(1, 4, 5, 5),
                                2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        twarp.resample2d_cuda(torch.zeros(1, 3, 5, 5), torch.zeros(1, 2, 5, 5))
 
 
 def test_cpu_tensors_take_the_plain_versions():
     """Dispatch by device: CPU tensors give the plain results and count no
     kernel launch."""
     before = (tcrop.crop_frames_cuda.launches,
-              tcorr.correlation_cuda.launches)
+              tcorr.correlation_cuda.launches,
+              twarp.resample2d_cuda.launches)
     rng = np.random.default_rng(0)
     frames = torch.from_numpy(rng.uniform(0, 255, (2, 16, 20, 3))
                               .astype(np.float32))
@@ -121,8 +125,16 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(tcorr.correlation(f1, f1, 2, 1),
                                tcorr.correlation_plain(f1, f1, 2, 1),
                                rtol=0, atol=0)
+    img = torch.from_numpy(rng.normal(size=(1, 6, 7, 3)).astype(np.float32))
+    flow = torch.from_numpy(rng.normal(size=(1, 6, 7, 2)).astype(np.float32))
+    torch.testing.assert_close(
+        twarp.resample2d(img, flow),
+        twarp.resample2d_plain(img.permute(0, 3, 1, 2),
+                               flow.permute(0, 3, 1, 2)).permute(0, 2, 3, 1),
+        rtol=0, atol=0)
     assert (tcrop.crop_frames_cuda.launches,
-            tcorr.correlation_cuda.launches) == before
+            tcorr.correlation_cuda.launches,
+            twarp.resample2d_cuda.launches) == before
 
 
 def test_library_path_tracks_the_sources():

@@ -5,6 +5,9 @@ the port through ``torch_convert.reverse_*`` with ``strict=True``; the same
 numpy inputs go through both (NHWC <-> NCHW), at float32.
 """
 
+from dataclasses import replace
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -152,6 +155,44 @@ def test_bfloat16_pose_runs_in_bfloat16_with_float32_params(pose_pair):
     assert (got - want).abs().max().item() <= 0.05 * scale
 
 
-def test_other_flow_variants_are_slice_2():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        get_flow_net(FlowConfig(variant="flownet2"))
+@pytest.mark.parametrize("variant,cls", [
+    ("flownet_s", "FlowNetS"), ("flownet_c", "FlowNetC"),
+    ("flownet_sd", "FlowNetSD"), ("flownet2", "FlowNet2"),
+    ("flownet2_cs", "FlowNet2CSS"), ("flownet2_css", "FlowNet2CSS")])
+def test_every_flow_variant_builds(variant, cls):
+    """Each FlowConfig variant builds its net (on the meta device: shapes
+    only), with the config's glue dtype for the cascades; an unknown
+    variant raises KeyError, as in the reference."""
+    from flowtrack_tpu_torch.models import flownet as tflownet
+
+    cfg = FlowConfig(variant=variant, glue_dtype="bfloat16")
+    net = get_flow_net(cfg, device="meta")
+    assert type(net).__name__ == cls and not net.training
+    if variant.startswith("flownet2"):
+        assert net.glue_dtype == torch.bfloat16 and net.div_flow == 20.0
+    if variant.startswith("flownet2_"):
+        assert net.stages == (1 if variant == "flownet2_cs" else 2)
+        assert hasattr(net, "flownets_2") == (variant == "flownet2_css")
+    with pytest.raises(KeyError):
+        get_flow_net(replace(cfg, variant="flownet3"), device="meta")
+    assert isinstance(net, getattr(tflownet, cls))
+
+
+def test_smoke_flownet2_config_is_the_experiment_yaml():
+    """chip_smoke.py builds the FlowNet2 path's config without PyYAML (the
+    card's machine has none); its model and flow sections are those of
+    experiments/flowtrack_posetrack_flownet2.yaml, glue float32, and its
+    track section too but for the smoke's 8 persons."""
+    import chip_smoke
+    from flowtrack_tpu.config import get_config
+
+    repo = Path(__file__).resolve().parents[1]
+    want = get_config(str(repo / "experiments"
+                          / "flowtrack_posetrack_flownet2.yaml"))
+    got = chip_smoke.flownet2_config()
+    assert got.model == want.model
+    assert got.flow == want.flow
+    assert replace(got.track, max_persons=want.track.max_persons) == \
+        want.track
+    assert got.flow.glue_dtype == "float32"
+    assert got.flow.variant == "flownet2" and got.model.num_layers == 152

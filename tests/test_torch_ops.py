@@ -334,9 +334,17 @@ def test_resize_matches_jax_image_resize(in_hw, out_hw):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
-def test_resize_refuses_to_shrink():
-    with pytest.raises(ValueError):
-        tflownet.resize_bilinear(torch.zeros(1, 8, 8, 2), (4, 8))
+@pytest.mark.parametrize("in_hw,out_hw", [((16, 24), (12, 40)),
+                                          ((20, 16), (40, 12))])
+def test_resize_shrinks_like_jax_image_resize(in_hw, out_hw):
+    """A resize that shrinks one axis and enlarges the other takes jax's
+    weights on both (antialiased triangle on the shrinking axis): float32
+    within 1e-6 of values of order 10 (observed 1e-6)."""
+    rng = np.random.default_rng(15)
+    x = rng.uniform(0, 10, (2, *in_hw, 3)).astype(np.float32)
+    want = np.asarray(jax.image.resize(x, (2, *out_hw, 3), "bilinear"))
+    got = N(tflownet.resize_bilinear(T(x), out_hw))
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
 
 
 def test_preprocess_and_postprocess_flow_match_reference():
@@ -356,3 +364,18 @@ def test_preprocess_and_postprocess_flow_match_reference():
     np.testing.assert_allclose(
         N(tflownet.flow_at_full_res(T(q))),
         np.asarray(jflownet.flow_at_full_res(q)), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["flownet2", "flownet2_cs",
+                                     "flownet2_css"])
+def test_postprocess_full_res_flow_matches_reference(variant):
+    """The cascades' full-resolution flow at the /64 net size (64x128)
+    back to 60x100 frames: no x4 and no div_flow, the antialiased shrink
+    and the components rescaled (values of order 20: 1e-4)."""
+    flow = np.random.default_rng(16).normal(0, 8, (2, 64, 128, 2)).astype(
+        np.float32)
+    want = np.asarray(jflownet.postprocess_flow(flow, variant, (60, 100)))
+    got = N(tflownet.postprocess_flow(T(flow), variant, (60, 100)))
+    assert got.shape == want.shape == (2, 60, 100, 2)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert not tflownet.flow_output_is_full_res("flownet_sd")
