@@ -18,8 +18,11 @@ that each print one or more lines:
      process per source;
   3. kernels: each kernel (crop, correlation, resample2d, fused_stage)
      against its plain PyTorch version on the card at the paths' shapes
-     (max error against a stated tolerance, times; fused_stage also beside
-     the same blocks through cuDNN bf16 convolutions);
+     (max error against a stated tolerance; its time beside the bound the
+     card sets for the same work, the plain version's time and, for the
+     warp, the one library call that computes it, grid_sample; fused_stage,
+     in the form each chunk's shape dispatches to, also beside the same
+     blocks through cuDNN bf16 convolutions);
   4. slice: three chained 16-frame 384x640 clips of slice 1 at full width
      with seeded random weights, the crop and correlation launch counts
      read around the run, and frames/s after a warm-up clip; then one clip
@@ -45,7 +48,8 @@ Then a short ``[summary]`` line repeating the run's headline numbers (build
 seconds, K5's chunk times, frames/s and the profiled clip's wall, busy and
 idle share per path, the fused R50's errors), a JSON line with each
 kernel's numbers (launches from the fused path for crop and fused_stage,
-from the FlowNet2 path for correlation and resample2d) and, last, the
+which must equal what the blocks' forms give, from the FlowNet2 path for
+correlation and resample2d) and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero.
 It needs the repository checkout (it imports the port from beside this
@@ -98,8 +102,12 @@ FLOW_BF16_REL_TOL = 0.02
 FUSED_REL_TOL = 2.0 ** -6
 # (name, (B, H, W, Cin), F, blocks, projection): every stride-1 chunk of R50
 # at 256x192 with the flip batch of 256 crops (layer1 whole, layers 2-4
-# after their striding first block), and ragged batches of 3 crops, whose
-# B*H*W leaves a partial 128-row tile at layers 3 and 4
+# after their striding first block), ragged batches of 3 crops, whose
+# B*H*W leaves a partial tile at layers 3 and 4, and shapes off R50's
+# path that tile as it does not, on one wgmma launch per conv: a 3x3 tiled
+# by image rows, and tiles whose pixels are no multiple of 64 (three rows of
+# 40 pixels; the first and last stage of the 384x288 presets at 64 crops,
+# two rows of 72 pixels and one whole image of 108, timed too)
 FUSED_CHUNKS = (
     ("layer1", (256, 64, 48, 64), 64, 3, True),
     ("layer2", (256, 32, 24, 512), 128, 3, False),
@@ -108,14 +116,40 @@ FUSED_CHUNKS = (
     ("layer1_b3", (3, 64, 48, 64), 64, 3, True),
     ("layer3_b3", (3, 16, 12, 1024), 256, 5, False),
     ("layer4_b3", (3, 8, 6, 2048), 512, 2, False),
+    ("rows_wgmma", (3, 32, 24, 1024), 256, 1, False),
+    ("w40_partial", (3, 6, 40, 256), 64, 2, False),
+    ("layer1_384x288", (64, 96, 72, 64), 64, 3, True),
+    ("layer4_384x288", (64, 12, 9, 2048), 512, 2, False),
 )
+# the chunks whose times add up to K5's time on the fused path
+R50_CHUNKS = ("layer1", "layer2", "layer3", "layer4")
 # FlowNet2 (float32 glue) in bf16 against float32, same metric: each stage's
 # flow moves the next stage's warp, so the cascade compounds bf16 rounding.
 # CPU rehearsal with random weights, 2 pairs: 9.9% and 9.6% at 128x192,
 # 11.4% and 9.4% at 192x320 (two seeds); 2.2x the worst of those
 FLOWNET2_BF16_REL_TOL = 0.25
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# operations per second by operand type, and bytes per second of HBM
+PEAK_OPS = {"bf16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
 # the run's headline numbers, printed again on one short line near the end
 SUMMARY: dict = {}
+
+
+def bound_ms(operations: float, op_type: str, tensors) -> tuple:
+    """The least time the card could take: the larger of the operations over
+    the peak rate of their type and the bytes of ``tensors`` (every input
+    read once, every output written once) over the memory rate. Returns
+    (ms, "operations" or "bytes")."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops = operations / PEAK_OPS[op_type] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def bound_fields(ms: float, bound: tuple) -> dict:
+    return {"bound_ms": bound[0], "bound_by": bound[1],
+            "bound_share": bound[0] / ms}
 
 
 def log(phase: str, **fields) -> None:
@@ -220,17 +254,26 @@ def phase_kernels():
             worst = max(worst, err)
             log("kernels", kernel="crop", frames=str(in_dtype), out=str(out_dtype),
                 max_abs_err=err, tol=tol)
-    # timed at the main path's own types: float32 frames -> bf16 crops
-    frames = torch.as_tensor(pixels, device=dev).float().contiguous()
+    # timed at the main path's own types: the video's uint8 frames, as
+    # ClipTracker.prepare puts them on the card, -> bf16 crops
+    frames = torch.as_tensor(pixels, device=dev).contiguous()
+    require(frames.dtype == torch.uint8, f"frames {frames.dtype}")
     args = (frames, idx, centers, scales, (256, 192), IMAGENET_MEAN,
             IMAGENET_STD, 255.0, torch.bfloat16)
     ms = time_ms(lambda: crop_mod.crop_frames_cuda(*args), 50)
     plain_ms = time_ms(lambda: crop_mod.crop_frames_plain(*args), 5)
-    log("kernels", kernel="crop", ms=ms, plain_ms=plain_ms)
+    # per output value: 4 taps weighted and summed, scaled and normalised
+    # in float32 (about 10 operations); no one library call crops by boxes
+    crops = crop_mod.crop_frames_cuda(*args)
+    bound = bound_fields(ms, bound_ms(10.0 * crops.numel(), "float32",
+                                      (frames, idx, centers, scales, crops)))
+    log("kernels", kernel="crop", frames=str(frames.dtype),
+        out=str(crops.dtype), ms=ms, plain_ms=plain_ms, **bound)
     results.append({"name": "crop_resize_normalize", "route": "cuda",
                     "source": "flowtrack_tpu_torch/csrc/crop.cu",
                     "replaces": "flowtrack_tpu/ops/crop.py:113",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    **bound, "library_ms": None})
 
     # K2: the FlowNetC cost volume of one clip's 15 pairs at 1/8 resolution
     shape = (FRAMES - 1, FRAME_H // 8, FRAME_W // 8, 256)
@@ -238,11 +281,45 @@ def phase_kernels():
     f2 = torch.as_tensor(rng.standard_normal(shape), device=dev).to(torch.bfloat16)
     f1n = f1.permute(0, 3, 1, 2).contiguous()
     f2n = f2.permute(0, 3, 1, 2).contiguous()
+    route = corr_mod.correlation_route(f1n.dtype, 256, shape[2], 20, 2)
+    require(route == "mma", f"bf16 features take route {route}")
     got = corr_mod.correlation_cuda(f1n, f2n, 20, 2)
     want = corr_mod.correlation_plain(f1, f2, 20, 2).permute(0, 3, 1, 2)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     require(err <= CORR_TOL, f"correlation: max err {err} > {CORR_TOL}")
+    # bf16 features on a ragged map (W no multiple of 8, C none of 16, odd
+    # stride2): the tensor-core kernel's masks; a 1080x1920 video's map,
+    # whose 256 channels go through in two chunks; a ragged map wider than
+    # one block's 256 columns with its channels in three chunks; and a
+    # displacement over 24, the CUDA-core kernel's
+    for rag_shape, md, s2 in (((2, 40, 9, 11), 4, 1), ((1, 64, 7, 24), 5, 3),
+                              ((1, 256, 5, 240), 20, 2),
+                              ((1, 520, 3, 301), 20, 2),
+                              ((1, 24, 6, 90), 40, 4)):
+        r1 = torch.as_tensor(rng.standard_normal(rag_shape), device=dev
+                             ).to(torch.bfloat16)
+        r2 = torch.as_tensor(rng.standard_normal(rag_shape), device=dev
+                             ).to(torch.bfloat16)
+        got16 = corr_mod.correlation_cuda(r1, r2, md, s2)
+        want16 = corr_mod.correlation_plain(
+            r1.permute(0, 2, 3, 1), r2.permute(0, 2, 3, 1), md, s2
+        ).permute(0, 3, 1, 2)
+        torch.cuda.synchronize()
+        err16 = (got16 - want16).abs().max().item()
+        require(got16.shape == want16.shape and err16 <= CORR_TOL,
+                f"correlation bf16 {rag_shape} md {md} stride2 {s2}: shape "
+                f"{tuple(got16.shape)}, max err {err16} > {CORR_TOL}")
+        rag_route = corr_mod.correlation_route(r1.dtype, rag_shape[1],
+                                               rag_shape[3], md, s2)
+        require(rag_route == ("mma" if md <= 24 else "cuda_core"),
+                f"correlation bf16 md {md}: route {rag_route}")
+        log("kernels", kernel="correlation", features="bfloat16",
+            route=rag_route,
+            shape="x".join(map(str, rag_shape)), md=md, stride2=s2,
+            staging=tuple(corr_mod.band_plan(rag_shape[1], rag_shape[3]))
+            if rag_route == "mma" else None,
+            max_abs_err=err16, tol=CORR_TOL)
     # float32 features (float32 configs) at another grid, on a ragged map
     g1 = torch.as_tensor(rng.standard_normal((2, 32, 9, 11)), device=dev).float()
     g2 = torch.as_tensor(rng.standard_normal((2, 32, 9, 11)), device=dev).float()
@@ -254,21 +331,35 @@ def phase_kernels():
     require(got32.shape == (2, 81, 9, 11) and err32 <= CORR_TOL,
             f"correlation float32 md 4: shape {tuple(got32.shape)}, "
             f"max err {err32} > {CORR_TOL}")
-    log("kernels", kernel="correlation", features="float32", md=4, stride2=1,
-        max_abs_err=err32, tol=CORR_TOL)
+    log("kernels", kernel="correlation", features="float32",
+        route=corr_mod.correlation_route(g1.dtype, 32, 11, 4, 1), md=4,
+        stride2=1, max_abs_err=err32, tol=CORR_TOL)
     ms = time_ms(lambda: corr_mod.correlation_cuda(f1n, f2n, 20, 2), 20)
     plain_ms = time_ms(lambda: corr_mod.correlation_plain(f1, f2, 20, 2), 2,
                        warmup=1)
-    log("kernels", kernel="correlation", max_abs_err=err, tol=CORR_TOL,
-        ms=ms, plain_ms=plain_ms)
+    # no one library call gives the banded volume (F.unfold would build
+    # the 441 shifted copies first)
+    bound = bound_fields(ms, correlation_bound_ms(*f1n.shape, 21))
+    log("kernels", kernel="correlation", features="bfloat16", route=route,
+        max_abs_err=err, tol=CORR_TOL, ms=ms, plain_ms=plain_ms, **bound)
     results.append({"name": "correlation", "route": "cuda",
                     "source": "flowtrack_tpu_torch/csrc/correlation.cu",
                     "replaces": "flowtrack_tpu/ops/correlation.py:73",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound, "library_ms": None})
     results.append(check_warp(dev, rng))
     results.append(check_fused_stage(dev))
     torch.cuda.synchronize()
     return results
+
+
+def correlation_bound_ms(n, c, h, w, d) -> tuple:
+    """K2's bound for bf16 features: the D*D kept sums over C as tensor-core
+    operations, two feature maps in and the float32 volume out."""
+    meta = torch.device("meta")
+    feat = torch.empty((2, n, c, h, w), dtype=torch.bfloat16, device=meta)
+    vol = torch.empty((n, d * d, h, w), dtype=torch.float32, device=meta)
+    return bound_ms(2.0 * n * d * d * h * w * c, "bf16", (feat, vol))
 
 
 def smooth_flow(rng, n, h, w, amplitude, dev):
@@ -331,12 +422,35 @@ def check_warp(dev, rng):
     # timed at the path's types: float32 glue, cascade-like flow
     ms = time_ms(lambda: warp_mod.resample2d_cuda(img, smooth), 50)
     plain_ms = time_ms(lambda: warp_mod.resample2d_plain(img, smooth), 5)
-    log("kernels", kernel="resample2d", ms=ms, plain_ms=plain_ms)
+
+    def library():
+        """The one library call that warps: grid_sample, with its grid built
+        from the flow inside the timed region. A yardstick only: the port
+        never calls it, and it rounds in another order than the kernel."""
+        ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
+        xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
+        grid = torch.stack(((xs + smooth[:, 0]) * (2.0 / (w - 1)) - 1.0,
+                            (ys + smooth[:, 1]) * (2.0 / (h - 1)) - 1.0), -1)
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    lib_err = (library() - warp_mod.resample2d_cuda(img, smooth)
+               ).abs().max().item()
+    require(lib_err <= 1e-3, f"grid_sample is not the same warp: {lib_err}")
+    library_ms = time_ms(library, 20)
+    # per output value: 4 taps weighted and summed in float32 (about 8
+    # operations, the coordinates shared by the 3 channels)
+    bound = bound_fields(ms, bound_ms(8.0 * img.numel(), "float32",
+                                      (img, smooth, img)))
+    log("kernels", kernel="resample2d", ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, library_max_abs_diff=lib_err, **bound)
     return {"name": "resample2d", "route": "cuda",
             "source": "flowtrack_tpu_torch/csrc/resample2d.cu",
             "replaces": "flowtrack_tpu/ops/warp.py:344 and "
                         "flowtrack_tpu/ops/warp.py:215",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms}
 
 
 def random_blocks(gen, cin, f, nblocks, projection, dev):
@@ -369,19 +483,40 @@ def chunk_flops(shape, blocks) -> int:
                        for k, v in blk.items() if k[0] == "w")
 
 
+def fused_bound_ms(shape, blocks) -> tuple:
+    """K5's bound for a chunk: its products as bf16 tensor-core operations;
+    the chunk's input, its weights and biases in, its output out (what lies
+    between the blocks need never touch device memory)."""
+    meta = torch.device("meta")
+    x = torch.empty(shape, dtype=torch.bfloat16, device=meta)
+    out = torch.empty((*shape[:3], blocks[-1]["w3"].shape[1]),
+                      dtype=torch.bfloat16, device=meta)
+    params = [v for blk in blocks for v in blk.values()]
+    return bound_ms(chunk_flops(shape, blocks), "bf16", (x, out, *params))
+
+
 def check_fused_stage(dev):
     """K5: fused_stage_cuda against fused_stage_plain (float32 sums of the
-    same bf16 products) at every R50 stage-chunk shape of the fused path,
-    each timed beside the plain version and beside the same blocks through
-    cuDNN bf16 convolutions (``block_conv``)."""
+    same bf16 products) at every R50 stage-chunk shape of the fused path, in
+    the form the shape dispatches to (the launch count must be the form's),
+    each timed beside its bound, the plain version and the same blocks
+    through cuDNN bf16 convolutions (``block_conv``: many library calls, a
+    yardstick and not one call that computes the chunk)."""
     from flowtrack_tpu_torch.ops import fused_resnet as fr
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    worst, rows = 0.0, {}
+    worst, rows, bounds = 0.0, {}, []
     for name, shape, f, nblocks, projection in FUSED_CHUNKS:
-        blocks = random_blocks(gen, shape[-1], f, nblocks, projection, dev)
+        blocks = fr.CheckedBlocks(
+            random_blocks(gen, shape[-1], f, nblocks, projection, dev))
         x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        forms = [fr.block_form(shape[1], shape[2], f, "wd" in blk).kind
+                 for blk in blocks]
+        before = fr.fused_stage_cuda.launches
         got = fr.fused_stage_cuda(x, blocks)
+        launched = fr.fused_stage_cuda.launches - before
+        require(launched == fr.stage_launches(shape[1], shape[2], blocks),
+                f"fused_stage {name}: {launched} launches for forms {forms}")
         want = fr.fused_stage_plain(x, blocks, 1)
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == torch.bfloat16,
@@ -395,7 +530,8 @@ def check_fused_stage(dev):
         worst = max(worst, err)
         fields = dict(kernel="fused_stage", chunk=name,
                       shape="x".join(map(str, shape)), f=f, blocks=nblocks,
-                      projection=projection, max_abs_err=err, rel_err=rel,
+                      projection=projection, forms="+".join(forms),
+                      launches=launched, max_abs_err=err, rel_err=rel,
                       tol=FUSED_REL_TOL, bitwise_share=bitwise)
         if shape[0] > 3:
             tflop = chunk_flops(shape, blocks) / 1e12
@@ -409,21 +545,31 @@ def check_fused_stage(dev):
             plain_ms = time_ms(lambda: fr.fused_stage_plain(x, blocks, 1), 2,
                                warmup=1)
             cudnn_ms = time_ms(cudnn, 10)
-            rows[name] = (ms, plain_ms, cudnn_ms)
+            bound = fused_bound_ms(shape, blocks)
+            if name in R50_CHUNKS:
+                rows[name] = (ms, plain_ms, cudnn_ms)
+                bounds.append(bound)
             SUMMARY.setdefault("k5_ms", {})[name] = round(ms, 3)
             fields.update(ms=ms, plain_ms=plain_ms, cudnn_ms=cudnn_ms,
+                          **bound_fields(ms, bound),
                           tflop=tflop, tflops=tflop / ms * 1e3,
                           plain_tflops=tflop / plain_ms * 1e3,
                           cudnn_tflops=tflop / cudnn_ms * 1e3)
         log("kernels", **fields)
     ms, plain_ms, cudnn_ms = (sum(r[i] for r in rows.values())
                               for i in range(3))
+    # the four chunks run one after the other: their bounds add, and what
+    # binds the sum is what binds most of it
+    by = max(("operations", "bytes"),
+             key=lambda k: sum(b[0] for b in bounds if b[1] == k))
+    bound = bound_fields(ms, (sum(b[0] for b in bounds), by))
     log("kernels", kernel="fused_stage", chunks="layer1-4", ms=ms,
-        plain_ms=plain_ms, cudnn_ms=cudnn_ms)
+        plain_ms=plain_ms, cudnn_ms=cudnn_ms, **bound)
     return {"name": "fused_stage", "route": "cuda",
             "source": "flowtrack_tpu_torch/csrc/fused_stage.cu",
             "replaces": "flowtrack_tpu/ops/fused_resnet.py:223",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None}
 
 
 def video_detections(rng, n_frames, persons, h, w, vel, drop=()):
@@ -610,9 +756,17 @@ def phase_fused(card):
     gen = torch.Generator().manual_seed(SEED + 4)
     fused = fuse_pose_model(cfg.model, random_bn_pose_net(
         cfg.model, torch.device("cuda"), gen))
-    log("fused", fold_s=f"{time.perf_counter() - t0:.1f}")
-    return drive_path("fused", card, cfg, (FRAME_H, FRAME_W),
-                      ("crop_resize_normalize", "fused_stage"), fused)
+    per_forward = fused.kernel_launches(cfg.model.image_size)
+    log("fused", fold_s=f"{time.perf_counter() - t0:.1f}",
+        fused_stage_launches_per_forward=per_forward)
+    launches = drive_path("fused", card, cfg, (FRAME_H, FRAME_W),
+                          ("crop_resize_normalize", "fused_stage"), fused)
+    # every pose pass is one crop launch and one forward of the fused net
+    expected = launches["crop_resize_normalize"] * per_forward
+    require(launches["fused_stage"] == expected,
+            f"fused: {launches['fused_stage']} fused_stage launches, the "
+            f"blocks' forms give {expected}")
+    return launches
 
 
 def phase_profile(tag, tracker, video, boxes, scores, valid):
@@ -653,7 +807,8 @@ def phase_profile(tag, tracker, video, boxes, scores, valid):
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total / 1e3
     ours = {k: round(sum(v for name, v in by_name.items() if k in name), 3)
             for k in ("crop_resize_normalize_kernel", "correlation_kernel",
-                      "resample2d_kernel", "fused_conv_kernel")}
+                      "correlation_mma_kernel", "resample2d_kernel",
+                      "block_wgmma_kernel", "conv_wgmma_kernel")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     SUMMARY.setdefault("profile_wall_busy_idle", {})[tag] = (
         round(wall_ms, 1), round(busy_ms, 1), round(1 - busy_ms / wall_ms, 3))

@@ -4,7 +4,9 @@ The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
 process per source, all started together, and linked into one shared
 library with a plain C interface under ``build/flowtrack_tpu_torch/`` beside
 the package, at first use and again whenever a source or a flag changes
-(the file name carries their hash). The library is loaded with
+(the file name carries their hash); ``ptxas -v`` reports each kernel's
+registers, spills and shared memory into ``<library>.ptxas.txt`` beside it.
+The library is loaded with
 ``ctypes``; each entry point launches on the stream it is given and returns
 the launch's ``cudaError_t``, which :func:`check` turns into an exception.
 
@@ -27,9 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("crop.cu", "correlation.cu", "resample2d.cu", "fused_stage.cu")
+HEADERS = ("hopper.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowtrack_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -38,8 +41,11 @@ _SIGNATURES = {
     "ft_correlation_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P],
     "ft_resample2d_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ft_fused_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _P],
+    "ft_correlation_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ft_fused_conv_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P],
+    "ft_fused_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,7 +68,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libflowtrack_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -85,9 +91,10 @@ def build() -> Path:
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for src, obj in zip(SOURCES, objs)]
-    failed = []
+    failed, report = [], []
     for src, proc in zip(SOURCES, procs):
         _, err = proc.communicate()
+        report.append(f"==== {src}\n{err}")
         if proc.returncode != 0:
             failed.append(f"{src} ({proc.returncode}):\n{err}")
     if failed:
@@ -100,6 +107,7 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text("\n".join(report))
     os.replace(tmp, out)
     return out
 

@@ -2,8 +2,11 @@
 
 Port of ``flowtrack_tpu/ops/correlation.py``: ``displacement_grid``
 (correlation.py:43), the plain twin of ``correlation_xla`` (:48), and in
-place of the TPU kernel ``_corr_kernel`` (:73) the CUDA kernel in
-``csrc/correlation.cu``, whose source note gives its bytes, MACs and design.
+place of the TPU kernel ``_corr_kernel`` (:73) the CUDA kernels in
+``csrc/correlation.cu``, whose source note gives the bytes, the products and
+the design: bfloat16 features run as a banded product on the tensor cores
+(any channel count and map width: ``band_plan``), float32 features, and
+bfloat16 ones displaced by more than 24, on the CUDA cores.
 
 Contract (the lineage's correlation package): kernel 1, max displacement
 ``md``, stride2 ``s2``, D = len({-md, -md+s2, ..., md}) shifts per axis,
@@ -12,17 +15,24 @@ input channels of ``f1[y, x] * f2[y+dy, x+dx]``, reading 0 outside the
 map; the output is float32. Forward only: training needs its backward.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the wrapper raises.
+kernel of its dtype (``correlation_route``), or the wrapper raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from flowtrack_tpu_torch import kernels
 
-_MAX_D = 21  # displacements per axis the kernel keeps in registers
+_MAX_D = 21  # displacements per axis the CUDA-core kernel keeps in registers
+# the tensor-core kernel: a warp pair's band of round8(md) + 16 + md columns
+# fits eight n8 tiles
+_MAX_BAND_MD = 24
+_GROUP_W = 256       # columns a block takes: two warps per 16 of them
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 
 
 def displacement_grid(max_displacement: int = 20, stride2: int = 2):
@@ -46,6 +56,54 @@ def correlation_plain(f1, f2, max_displacement: int = 20, stride2: int = 2):
     return torch.stack(outs, dim=-1)
 
 
+class BandPlan(NamedTuple):
+    """How the tensor-core kernel runs a (C, W) map: ``kc`` channels staged
+    at a time (a multiple of 16; round16(C) when both rows fit whole),
+    ``smem_bytes`` of shared memory, ``groups`` blocks of 256 columns."""
+    kc: int
+    smem_bytes: int
+    groups: int
+
+
+def band_plan(c: int, w: int) -> BandPlan:
+    """The tensor-core kernel's staging for C channels of W columns: a row of
+    f1 and one of f2, each ``kc`` channels of round16(W) + 8 bfloat16 values,
+    with the channels cut into the fewest equal chunks that fit a block's
+    shared memory. Raises when 16 channels of one row pair do not fit."""
+    cp, wp = -(-c // 16) * 16, -(-w // 16) * 16
+    per_channel = 2 * (wp + 8) * 2
+    most = SMEM_LIMIT // per_channel // 16 * 16
+    if most < 16:
+        raise ValueError(f"two rows of 16 channels x {w} columns take "
+                         f"{16 * per_channel} bytes of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    chunks = -(-cp // most)
+    kc = -(-cp // chunks // 16) * 16
+    return BandPlan(kc, kc * per_channel, -(-wp // _GROUP_W))
+
+
+def correlation_route(dtype, c: int, w: int, max_displacement: int,
+                      stride2: int) -> str:
+    """Which kernel takes these features, by dtype and shape: "mma"
+    (bfloat16, the banded product on the tensor cores) or "cuda_core"
+    (float32, and bfloat16 displaced by more than 24). Raises on what
+    neither takes."""
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError(f"max_displacement >= 0 and stride2 >= 1, got "
+                         f"{max_displacement} and {stride2}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"f1, f2 must both be bfloat16 or float32, got "
+                        f"{dtype}")
+    if dtype == torch.bfloat16 and max_displacement <= _MAX_BAND_MD:
+        band_plan(c, w)
+        return "mma"
+    d = len(displacement_grid(max_displacement, stride2))
+    if d > _MAX_D:
+        raise ValueError(f"the CUDA-core kernel takes at most {_MAX_D} "
+                         f"displacements per axis, got {d}")
+    return "cuda_core"
+
+
 def correlation_cuda(f1, f2, max_displacement: int = 20, stride2: int = 2):
     """Launch K2. f1, f2 (N, C, H, W) contiguous, bfloat16 or float32, on a
     CUDA device -> (N, D*D, H, W) float32."""
@@ -55,22 +113,25 @@ def correlation_cuda(f1, f2, max_displacement: int = 20, stride2: int = 2):
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(f"f1, f2 must be equal (N, C, H, W), got "
                          f"{tuple(f1.shape)} and {tuple(f2.shape)}")
-    if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
+    if f2.dtype != f1.dtype:
         raise TypeError(f"f1, f2 must both be bfloat16 or float32, got "
                         f"{f1.dtype} and {f2.dtype}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError("f1, f2 must be contiguous")
-    d = len(displacement_grid(max_displacement, stride2))
-    if d > _MAX_D:
-        raise ValueError(f"the kernel takes at most {_MAX_D} displacements "
-                         f"per axis, got {d}")
     n, c, h, w = f1.shape
+    route = correlation_route(f1.dtype, c, w, max_displacement, stride2)
+    d = len(displacement_grid(max_displacement, stride2))
     out = torch.empty((n, d * d, h, w), dtype=torch.float32, device=f1.device)
     if out.numel():
-        err = kernels.library().ft_correlation_forward(
-            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w,
-            max_displacement, stride2, d, int(f1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(f1.device).cuda_stream)
+        lib = kernels.library()
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        args = (f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w,
+                max_displacement, stride2, d)
+        if route == "mma":
+            err = lib.ft_correlation_mma(*args, band_plan(c, w).kc, stream)
+        else:
+            err = lib.ft_correlation_forward(
+                *args, int(f1.dtype == torch.bfloat16), stream)
         kernels.check(err, "correlation")
         correlation_cuda.launches += 1
     return out

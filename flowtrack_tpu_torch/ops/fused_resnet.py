@@ -4,8 +4,9 @@ Port of ``flowtrack_tpu/ops/fused_resnet.py``: the matmul layouts
 ``_as_matmul`` / ``block_from_folded`` / ``stage_blocks_from_folded``
 (fused_resnet.py:86-126), the plain twin of ``_block_ref`` /
 ``fused_stage_ref`` (:134-176), ``_block_conv_xla`` (:185), and in place of
-the TPU kernel ``_stage_kernel`` (:223) the CUDA kernel in
-``csrc/fused_stage.cu``, whose source note gives its design and bounds.
+the TPU kernel ``_stage_kernel`` (:223) the CUDA kernels in
+``csrc/fused_stage.cu`` (wgmma; its source note gives the design and the
+bounds).
 ``FusedPoseResNet`` is the counterpart of ``FusedPoseAdapter`` (:404) and
 ``fuse_pose_model`` of :466.
 
@@ -23,13 +24,19 @@ rounding (the reference's twin keeps the float32 sum plus the bias). The
 port follows the reference's Pallas route, which is the one its path runs.
 
 Dispatch (``fused_stage``): the stride-1 blocks of a CUDA tensor go to the
-kernel, of a CPU tensor to ``fused_stage_plain``; the wrapper raises on
-anything the kernel does not take.
+kernels, of a CPU tensor to ``fused_stage_plain``; the wrapper raises on
+anything the kernels do not take. On the card each block takes one of two
+forms by its shape alone (``block_form``): ``block``, the whole block in one
+launch with y1 and y2 kept on chip (F = 64, or F = 128 without projection,
+where whole image rows make a tile of 64, 128 or 192 pixels); ``wgmma``, one
+launch per conv on the wgmma main loop (every other block: the 3x3's tile
+is image rows or whole images of at most 192 pixels, so any image up to 192
+pixels wide runs here).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -192,13 +199,27 @@ def _check_block(blk: dict, cin: int, device) -> None:
                          f"multiples of 64, got Cin {cin}, F {f}")
 
 
+def transposed_weights(blk: dict) -> dict:
+    """A block's weights as the wgmma kernels read them, (N, K) row-major
+    with K contiguous: w1t (F, Cin), w2t (F, 9F) over K = (row tap, column
+    tap, channel), w3t (4F, F) and, with a projection, wdt (4F, Cin)."""
+    f = blk["w1"].shape[1]
+    out = {"w1t": blk["w1"].t().contiguous(),
+           "w2t": blk["w2"].reshape(9 * f, f).t().contiguous(),
+           "w3t": blk["w3"].t().contiguous()}
+    if "wd" in blk:
+        out["wdt"] = blk["wd"].t().contiguous()
+    return out
+
+
 class CheckedBlocks(tuple):
-    """A chain of block dicts checked once for the kernel: the keys, each
+    """A chain of block dicts checked once for the kernels: the keys, each
     tensor's dtype, shape, contiguity and device (the first weight's), and
-    each block's input width the previous block's output width. A slice
-    stays checked. ``fused_stage_cuda`` checks any other sequence of blocks
-    on every call, and of a CheckedBlocks only the input's width and
-    device."""
+    each block's input width the previous block's output width. It also
+    keeps each block's ``transposed_weights``, made at the block's first
+    launch on wgmma. A slice stays checked and shares them.
+    ``fused_stage_cuda`` checks any other sequence of blocks on every call,
+    and of a CheckedBlocks only the input's width and device."""
 
     def __new__(cls, blocks):
         blocks = tuple(blocks)
@@ -207,35 +228,152 @@ class CheckedBlocks(tuple):
             for blk in blocks:
                 _check_block(blk, cin, device)
                 cin = blk["w3"].shape[1]
-        return super().__new__(cls, blocks)
+        self = super().__new__(cls, blocks)
+        self._transposed = [{} for _ in blocks]
+        return self
 
     def __getitem__(self, i):
         got = super().__getitem__(i)
-        return tuple.__new__(CheckedBlocks, got) if isinstance(i, slice) else got
+        if not isinstance(i, slice):
+            return got
+        new = tuple.__new__(CheckedBlocks, got)
+        new._transposed = self._transposed[i]
+        return new
+
+    def transposed(self, i: int) -> dict:
+        """Block i's ``transposed_weights``, made once."""
+        t = self._transposed[i]
+        if not t:
+            t.update(transposed_weights(self[i]))
+        return t
+
+
+# ---------------------------------------------------------------------------
+# Which form a block takes on the card (plain arithmetic on its shape)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448        # bytes of shared memory one block may use on sm_90
+TILE_PIXELS = (192, 128, 64)   # pixels of a wgmma tile: 3, 2 or 1 m64 slices
+_A_STAGE = 192 * 64 * 2    # a ring stage's activations: 192 pixels x 64 K
+
+
+class BlockForm(NamedTuple):
+    """How one stride-1 block runs on the card: ``kind`` "block" or "wgmma";
+    the tile of its 3x3 (``rows`` image rows of one image, or ``images``
+    whole images); its launches."""
+    kind: str
+    rows: int
+    images: int
+    launches: int
+
+
+def row_tiling(h: int, w: int):
+    """Image rows per tile so that a tile is ``rows`` whole rows of one
+    image and 192, 128 or 64 pixels (the most that fits), or None."""
+    for pixels in TILE_PIXELS:
+        rows = pixels // w
+        if rows * w == pixels and 0 < rows <= h and h % rows == 0:
+            return rows
+    return None
+
+
+def conv_tiling(h: int, w: int):
+    """The 3x3 conv's TMA box on wgmma: (rows, images) with ``rows`` image
+    rows of one image (images == 1, rows divides h) or ``images`` whole
+    images (rows == h), whichever holds the most pixels within a tile's 192
+    (rows of one image where both hold as many); None for an image over 192
+    pixels wide."""
+    if w > TILE_PIXELS[0]:
+        return None
+    rows = max(r for r in range(1, h + 1)
+               if h % r == 0 and r * w <= TILE_PIXELS[0])
+    images = TILE_PIXELS[0] // (h * w)
+    if images * h > rows:
+        return h, images
+    return rows, 1
+
+
+def block_stages(f: int) -> int:
+    """Ring stages of the whole-block kernel: what fits beside y1."""
+    return 5 if f == 64 else 4
+
+
+def block_smem_bytes(f: int, rows: int, w: int) -> int:
+    """Shared memory of the whole-block kernel: the ring (``block_stages``
+    stages, each 192 pixels of x and F rows of weights, 64 K wide), y1 over
+    the tile and its two halo rows with one row of zeros (rows of 2F + 16
+    bytes), barriers, and 1024 bytes to align."""
+    stages = block_stages(f)
+    return (1024 + stages * (_A_STAGE + f * 128)
+            + ((rows + 2) * w + 1) * (2 * f + 16) + 16 * stages)
+
+
+def conv_smem_bytes(bn: int) -> int:
+    """Shared memory of the per-conv wgmma kernel at an output tile BN wide:
+    4 stages, the 192 x BN bfloat16 output tile, barriers, and 1024 bytes to
+    align."""
+    return (1024 + 4 * (_A_STAGE + bn * 128) + (bn // 64) * _A_STAGE
+            + 16 * 4 + 16)
+
+
+def block_form(h: int, w: int, f: int, projection: bool) -> BlockForm:
+    """The form of a stride-1 block over (h, w) images, by its shape alone."""
+    rows = row_tiling(h, w)
+    if (rows is not None and (f == 64 or (f == 128 and not projection))
+            and block_smem_bytes(f, rows, w) <= SMEM_LIMIT):
+        return BlockForm("block", rows, 1, 1)
+    tiling = conv_tiling(h, w)
+    if tiling is None:
+        raise ValueError(f"the kernels tile images at most {TILE_PIXELS[0]} "
+                         f"pixels wide, got {h} x {w}")
+    return BlockForm("wgmma", *tiling, 3)
+
+
+def stage_launches(h: int, w: int, blocks: Sequence[dict]) -> int:
+    """K5 launches of a chain of stride-1 blocks over (h, w) images."""
+    return sum(block_form(h, w, blk["w1"].shape[1], "wd" in blk).launches
+               for blk in blocks)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(lib, stream, a, w, bias, out, m, n, k, lda, taps, h=1, wd=1,
-            res=None, proj=None):
-    """One launch of the stage kernel: out (M, N) = epilogue(A @ W)."""
-    a2, w2, b2 = proj if proj is not None else (None, None, None)
-    err = lib.ft_fused_conv(_ptr(a), _ptr(w), _ptr(bias), _ptr(res), _ptr(a2),
-                            _ptr(w2), _ptr(b2), _ptr(out), m, n, k, lda,
-                            0 if a2 is None else a2.shape[-1], h, wd, taps,
-                            stream)
+def _launched(err: int) -> None:
     kernels.check(err, "fused_stage")
     fused_stage_cuda.launches += 1
 
 
+def _block_per_conv(lib, stream, x, blk, wt, form, out):
+    """One block as three wgmma launches (``wt``: its transposed weights)."""
+    b, h, w, cin = x.shape
+    m = b * h * w
+    f, cout = blk["w1"].shape[1], blk["w3"].shape[1]
+    proj = "wd" in blk
+    y1 = torch.empty((m, f), dtype=_BF16, device=x.device)
+    y2 = torch.empty((m, f), dtype=_BF16, device=x.device)
+    res = None if proj else x
+    conv = lib.ft_fused_conv_wgmma
+    w1, w2, w3, wd = wt["w1t"], wt["w2t"], wt["w3t"], wt.get("wdt")
+    tile = (form.rows, form.images)
+    a2, bd, k2 = (x, blk["bd"], cin) if proj else (None, None, 0)
+    _launched(conv(_ptr(x), _ptr(w1), _ptr(blk["b1"]), None, None, None, None,
+                   _ptr(y1), m, f, cin, cin, 0, h, w, 1, *tile, stream))
+    _launched(conv(_ptr(y1), _ptr(w2), _ptr(blk["b2"]), None, None, None,
+                   None, _ptr(y2), m, f, 9 * f, f, 0, h, w, 9, *tile, stream))
+    _launched(conv(_ptr(y2), _ptr(w3), _ptr(blk["b3"]), _ptr(res), _ptr(a2),
+                   _ptr(wd), _ptr(bd), _ptr(out), m, cout, f, f, k2, h, w, 1,
+                   *tile, stream))
+
+
 def fused_stage_cuda(x, blocks: Sequence[dict]):
     """Launch K5 over a chain of stride-1 blocks: x (B, H, W, Cin) bfloat16
-    contiguous on a CUDA device -> (B, H, W, Cout) bfloat16. Three launches
-    per block: conv1, conv2 (implicit 3x3 GEMM), conv3 with the residual or
-    the projection in its epilogue. ``blocks``: block dicts, checked on each
-    call, or a ``CheckedBlocks``, checked when it was made."""
+    contiguous on a CUDA device -> (B, H, W, Cout) bfloat16. Each block runs
+    in the form ``block_form`` gives its shape: one launch for the whole
+    block, or one per conv (conv1, the implicit 3x3 GEMM, conv3 with the
+    residual or the projection in its epilogue). ``blocks``: block dicts,
+    checked (and their weights transposed for wgmma) on each call, or a
+    ``CheckedBlocks``, which does both once."""
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_stage kernel needs CUDA tensors, got "
                            f"{x.device}")
@@ -255,18 +393,20 @@ def fused_stage_cuda(x, blocks: Sequence[dict]):
                          f"on {x.device}")
     lib = kernels.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    for blk in blocks:
+    for i, blk in enumerate(blocks):
         cin = x.shape[-1]
         f, cout = blk["w1"].shape[1], blk["w3"].shape[1]
-        y1 = torch.empty((m, f), dtype=_BF16, device=x.device)
-        _launch(lib, stream, x, blk["w1"], blk["b1"], y1, m, f, cin, cin, 1)
-        y2 = torch.empty((m, f), dtype=_BF16, device=x.device)
-        _launch(lib, stream, y1, blk["w2"], blk["b2"], y2, m, f, 9 * f, f, 9,
-                h, w)
+        form = block_form(h, w, f, "wd" in blk)
         out = torch.empty((b, h, w, cout), dtype=_BF16, device=x.device)
-        proj = (x, blk["wd"], blk["bd"]) if "wd" in blk else None
-        _launch(lib, stream, y2, blk["w3"], blk["b3"], out, m, cout, f, f, 1,
-                res=None if proj else x, proj=proj)
+        wt = blocks.transposed(i)
+        if form.kind == "block":
+            _launched(lib.ft_fused_block(
+                _ptr(x), _ptr(wt["w1t"]), _ptr(blk["b1"]), _ptr(wt["w2t"]),
+                _ptr(blk["b2"]), _ptr(wt["w3t"]), _ptr(blk["b3"]),
+                _ptr(wt.get("wdt")), _ptr(blk.get("bd")), _ptr(out), m, cin,
+                f, h, w, form.rows, stream))
+        else:
+            _block_per_conv(lib, stream, x, blk, wt, form, out)
         x = out
     return x
 
@@ -401,6 +541,17 @@ class FusedPoseResNet(nn.Module):
             self._checked = [CheckedBlocks(blk.tensors() for blk in stage)
                              for stage in self.stages]
         return self._checked
+
+    def kernel_launches(self, image_hw) -> int:
+        """K5 launches of one forward over crops of ``image_hw`` on the
+        card: each stage's stride-1 blocks in the form their shape gives."""
+        h, w = (((n - 1) // 2 + 1 - 1) // 2 + 1 for n in image_hw)
+        total = 0
+        for s, blocks in enumerate(self.stage_blocks()):
+            if s:
+                h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            total += stage_launches(h, w, blocks[1:] if s else blocks)
+        return total
 
     def forward(self, x):
         cfg = self.cfg

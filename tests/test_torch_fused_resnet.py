@@ -297,6 +297,199 @@ def test_stage_kernel_wrapper_refuses_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# What the wrapper computes in Python around the kernels: the form a block
+# takes on the card, its tile and halo, shared memory, launches, layouts
+# ---------------------------------------------------------------------------
+
+
+# R50 at 256x192 crops: (h, w, f, projection) of the stride-1 blocks
+R50_BLOCKS = {"layer1_0": (64, 48, 64, True), "layer1": (64, 48, 64, False),
+              "layer2": (32, 24, 128, False), "layer3": (16, 12, 256, False),
+              "layer4": (8, 6, 512, False)}
+
+
+@pytest.mark.parametrize("name,form", [
+    ("layer1_0", ("block", 4, 1, 1)), ("layer1", ("block", 4, 1, 1)),
+    ("layer2", ("block", 8, 1, 1)), ("layer3", ("wgmma", 16, 1, 3)),
+    ("layer4", ("wgmma", 8, 4, 3))])
+def test_r50_chunk_shapes_dispatch_to_their_form(name, form):
+    """Layers 1 and 2 run a whole block per launch on tiles of 4 and 8 image
+    rows; layer3 one conv per launch on whole images, layer4 on four."""
+    assert tuple(tfr.block_form(*R50_BLOCKS[name])) == form
+
+
+@pytest.mark.parametrize("h,w,f,proj,form", [
+    (16, 16, 64, True, ("block", 8, 1, 1)),      # 128-pixel tiles
+    (32, 24, 128, True, ("wgmma", 8, 1, 3)),     # no F=128 block with projection
+    (4, 4, 512, False, ("wgmma", 4, 12, 3)),     # twelve whole images
+    (8, 8, 256, False, ("wgmma", 8, 3, 3)),      # 192 pixels before 64
+    (10, 10, 64, False, ("wgmma", 10, 1, 3)),    # a tile of 100 pixels
+    (64, 40, 64, False, ("wgmma", 4, 1, 3)),     # 160 pixels
+    (96, 72, 64, True, ("wgmma", 2, 1, 3)),      # the 384x288 presets' stages
+    (48, 36, 128, False, ("wgmma", 4, 1, 3)),
+    (24, 18, 256, False, ("wgmma", 8, 1, 3)),
+    (12, 9, 512, False, ("wgmma", 12, 1, 3)),
+    (3, 64, 64, False, ("block", 3, 1, 1)),      # one tile per image
+])
+def test_other_shapes_dispatch_by_shape_alone(h, w, f, proj, form):
+    assert tuple(tfr.block_form(h, w, f, proj)) == form
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("layer1", "block"), ("layer2", "block"), ("layer3", "wgmma"),
+    ("layer4", "wgmma"), ("layer1_b3", "block"), ("layer3_b3", "wgmma"),
+    ("layer4_b3", "wgmma"), ("rows_wgmma", "wgmma"), ("w40_partial", "wgmma"),
+    ("layer1_384x288", "wgmma"), ("layer4_384x288", "wgmma")])
+def test_the_smoke_checks_every_form_on_the_card(name, kind):
+    """The chunks that the smoke holds against the plain version on the card
+    cover both forms, the 3x3 of the per-conv form tiled by whole images
+    (R50's layers 3 and 4), by image rows, and by tiles whose pixels are no
+    multiple of 64 (the 384x288 presets' first and last stages)."""
+    import chip_smoke
+
+    chunks = {c[0]: c[1:] for c in chip_smoke.FUSED_CHUNKS}
+    assert len(chunks) == 11
+    (_, h, w, _), f, _, projection = chunks[name]
+    form = tfr.block_form(h, w, f, projection)   # the first block's
+    assert form.kind == kind
+    later = tfr.block_form(h, w, f, False)
+    assert later.kind == kind
+    if name == "rows_wgmma":
+        assert (form.rows, form.images) == (8, 1)
+    if name in ("layer3", "layer4"):
+        assert form.rows == h and form.images == 192 // (h * w)
+    if name in ("w40_partial", "layer1_384x288", "layer4_384x288"):
+        assert (form.rows * form.images * w) % 64
+
+
+@pytest.mark.parametrize("h,w", [(64, 48), (32, 24), (16, 12), (8, 6),
+                                 (16, 16), (4, 4), (8, 8), (2, 96), (1, 64),
+                                 (96, 72), (48, 36), (24, 18), (12, 9),
+                                 (10, 10), (6, 40), (5, 7), (300, 1)])
+def test_tiles_are_boxes_of_whole_rows_or_images(h, w):
+    """A tile is at most 192 pixels: whole image rows that divide the image,
+    or whole images; the most pixels that fit, and where whole rows make 64,
+    128 or 192 pixels the whole-block form's rows are the same."""
+    rows, images = tfr.conv_tiling(h, w)
+    pixels = rows * w * images
+    assert 0 < pixels <= 192
+    assert (images == 1 and h % rows == 0) or rows == h
+    assert max(rows, images, w) <= 256          # a TMA box's extents
+    for r in range(1, h + 1):
+        assert h % r or r * w > 192 or r * w <= pixels
+    assert h * w > 192 or pixels + h * w > 192
+    if images == 1 and tfr.row_tiling(h, w) is not None and pixels == 192:
+        assert tfr.row_tiling(h, w) == rows
+
+
+@pytest.mark.parametrize("h,w", [(1, 200), (300, 193), (5, 256), (4, 1000)])
+def test_untileable_extents_have_no_tiling(h, w):
+    """Only an image over 192 pixels wide has no tile: the wrapper raises."""
+    assert tfr.conv_tiling(h, w) is None and tfr.row_tiling(h, w) is None
+    with pytest.raises(ValueError, match="192 pixels wide"):
+        tfr.block_form(h, w, 64, False)
+
+
+@pytest.mark.parametrize("name", ["layer1_0", "layer1", "layer2"])
+def test_block_form_fits_shared_memory(name):
+    """The whole-block kernel's shared memory, counted as the kernel lays it
+    out, stays under a block's 232,448 bytes at R50's shapes; y1 with its
+    halo is (rows + 2) image rows."""
+    h, w, f, proj = R50_BLOCKS[name]
+    form = tfr.block_form(h, w, f, proj)
+    used = tfr.block_smem_bytes(f, form.rows, w)
+    assert used <= tfr.SMEM_LIMIT == 232448
+    y1 = ((form.rows + 2) * w + 1) * (2 * f + 16)
+    stages = {64: 5, 128: 4}[f]
+    assert tfr.block_stages(f) == stages
+    assert used == 1024 + stages * (192 * 128 + f * 128) + y1 + 16 * stages
+    assert {"layer1_0": 206560, "layer1": 206560, "layer2": 230480}[name] == used
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_conv_form_fits_shared_memory(bn):
+    assert tfr.conv_smem_bytes(bn) <= tfr.SMEM_LIMIT
+    assert tfr.conv_smem_bytes(bn) == (1024 + 4 * (24576 + bn * 128)
+                                       + bn // 64 * 24576 + 80)
+
+
+def test_block_form_gives_way_when_shared_memory_does_not_fit():
+    """A tile whose y1 does not fit keeps one launch per conv (F = 128 on
+    rows of 96 pixels: 6 halo'd rows of 272 bytes a pixel)."""
+    assert tfr.block_smem_bytes(128, 2, 96) > tfr.SMEM_LIMIT
+    assert tfr.block_form(4, 96, 128, False).kind == "wgmma"
+    assert tfr.block_form(4, 96, 64, False).kind == "block"
+
+
+@pytest.mark.parametrize("image_hw,launches", [((256, 192), 27),
+                                               ((64, 64), 27),
+                                               ((128, 96), 27),
+                                               ((160, 160), 39)])
+def test_launches_per_forward_follow_the_forms(r50, image_hw, launches):
+    """R50 has 3 + 3 + 5 + 2 stride-1 blocks. At 256x192 layers 1 and 2 take
+    one launch a block, layers 3 and 4 three: 3 + 3 + 15 + 6, and so at
+    64x64 (16x16 and 8x8 images tile by rows too). At 160x160 (40x40 at
+    layer1) no stage has whole rows of 64, 128 or 192 pixels and every block
+    takes three launches. The count is held to the forms of the blocks'
+    shapes."""
+    _, fused, _ = r50
+    model = load_fused_pose(tfr.FusedPoseResNet(replace(R50, image_size=image_hw)),
+                            fused)
+    h, w = image_hw[0] // 4, image_hw[1] // 4
+    want = 0
+    for s, nblocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** s
+        if s:
+            h, w = (h + 1) // 2, (w + 1) // 2
+        for b in range(1 if s else 0, nblocks):
+            want += tfr.block_form(h, w, f, s == 0 and b == 0).launches
+    assert model.kernel_launches(image_hw) == want == launches
+
+
+def test_stage_launches_counts_each_block():
+    _, _, tb, _ = _stage_inputs(3, (1, 64, 48, 64), 64, 3, True)
+    assert tfr.stage_launches(64, 48, tb) == 3
+    assert tfr.stage_launches(10, 10, tb) == 9
+
+
+@pytest.mark.parametrize("f,projection", [(64, True), (64, False),
+                                          (128, False)])
+def test_transposed_weights_are_the_same_block(f, projection):
+    """The wgmma kernels read (N, K) weights with K contiguous; transposed
+    back into the reference's layouts they give the plain block bitwise, and
+    w2t's K index is (row tap, column tap, channel)."""
+    cin = 64 if projection else 4 * f
+    _, _, tb, xt = _stage_inputs(11, (2, 4, 4, cin), f, 1, projection)
+    blk = tb[0]
+    t = tfr.transposed_weights(blk)
+    assert set(t) == {"w1t", "w2t", "w3t"} | ({"wdt"} if projection else set())
+    assert t["w1t"].shape == (f, cin) and t["w2t"].shape == (f, 9 * f)
+    assert t["w3t"].shape == (4 * f, f)
+    assert all(v.is_contiguous() and v.dtype == torch.bfloat16
+               for v in t.values())
+    a, b, c, n = 2, 1, 5, 3
+    assert t["w2t"][n, (a * 3 + b) * f + c] == blk["w2"][a, b * f + c, n]
+    back = dict(blk, w1=t["w1t"].t().contiguous(),
+                w2=t["w2t"].t().reshape(3, 3 * f, f).contiguous(),
+                w3=t["w3t"].t().contiguous())
+    if projection:
+        back["wd"] = t["wdt"].t().contiguous()
+    torch.testing.assert_close(tfr.fused_block_plain(xt, back, 1),
+                               tfr.fused_block_plain(xt, blk, 1),
+                               rtol=0, atol=0)
+
+
+def test_checked_blocks_keep_their_transposes_through_slices():
+    _, _, tb, _ = _stage_inputs(5, (1, 4, 4, 64), 64, 3, True)
+    chain = tfr.CheckedBlocks(tb)
+    first = chain.transposed(1)
+    assert chain.transposed(1) is first
+    assert chain[1:].transposed(0) is first
+    assert sorted(chain[1:].transposed(1)) == ["w1t", "w2t", "w3t"]
+    assert sorted(chain.transposed(0)) == ["w1t", "w2t", "w3t", "wdt"]
+
+
+# ---------------------------------------------------------------------------
 # The slice: ClipTracker with the fused R50 and FlowNetS
 # ---------------------------------------------------------------------------
 

@@ -202,3 +202,24 @@ def test_library_path_tracks_the_sources():
     assert path.parent == REPO / "build" / "flowtrack_tpu_torch"
     assert path.name.startswith("libflowtrack_kernels_")
     assert set(kernels.SOURCES) == {p.name for p in kernels.CSRC.glob("*.cu")}
+    assert set(kernels.HEADERS) == {p.name for p in kernels.CSRC.glob("*.cuh")}
+
+
+def test_kernel_ab_imports_nothing_of_the_reference():
+    """The old-against-new timing script imports the port and chip_smoke
+    only."""
+    code = ("import sys\nimport kernel_ab\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('flowtrack_tpu', 'jax', 'jaxlib', 'flax', 'optax'))\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_library_path_tracks_the_flags(monkeypatch):
+    """Another set of nvcc flags names another library."""
+    plain = kernels.library_path()
+    monkeypatch.setattr(kernels, "NVCC_FLAGS",
+                        kernels.NVCC_FLAGS + ("-lineinfo",))
+    assert kernels.library_path() != plain

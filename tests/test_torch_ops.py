@@ -158,6 +158,75 @@ def test_correlation_md20_full_grid():
     assert np.all(got[..., 0] == 0.0)
 
 
+@pytest.mark.parametrize("dtype,c,w,md,s2,route", [
+    (torch.bfloat16, 256, 80, 20, 2, "mma"),      # the paths' volume
+    (torch.bfloat16, 40, 11, 4, 1, "mma"),        # ragged: masked, not refused
+    (torch.bfloat16, 64, 24, 5, 3, "mma"),
+    (torch.bfloat16, 16, 256, 24, 1, "mma"),      # the farthest band
+    (torch.bfloat16, 256, 240, 20, 2, "mma"),     # a 1080x1920 video's map
+    (torch.bfloat16, 256, 257, 20, 2, "mma"),     # two groups of columns
+    (torch.bfloat16, 1024, 80, 20, 2, "mma"),     # channels in chunks
+    (torch.bfloat16, 256, 80, 40, 4, "cuda_core"),  # a band over 64 columns
+    (torch.float32, 32, 11, 4, 1, "cuda_core"),
+    (torch.float32, 256, 80, 20, 2, "cuda_core"),
+])
+def test_correlation_route_by_dtype(dtype, c, w, md, s2, route):
+    """bfloat16 features take the tensor-core kernel at any channel count
+    and width, float32 features the CUDA-core kernel (the float32 contract
+    admits no bf16 or TF32 product), as do bfloat16 features displaced
+    further than a warp pair's band."""
+    assert tcorr.correlation_route(dtype, c, w, md, s2) == route
+
+
+@pytest.mark.parametrize("dtype,c,w,md,s2,error,match", [
+    (torch.bfloat16, 256, 80, 25, 1, ValueError, "at most 21 displacements"),
+    (torch.bfloat16, 256, 80, 44, 4, ValueError, "at most 21 displacements"),
+    (torch.bfloat16, 16, 4000, 4, 1, ValueError, "shared memory"),
+    (torch.float32, 32, 11, 11, 1, ValueError, "at most 21 displacements"),
+    (torch.float16, 32, 11, 4, 1, TypeError, "bfloat16 or float32"),
+    (torch.bfloat16, 32, 11, 4, 0, ValueError, "stride2 >= 1"),
+    (torch.float32, 32, 11, -1, 1, ValueError, "max_displacement >= 0"),
+])
+def test_correlation_route_refuses(dtype, c, w, md, s2, error, match):
+    with pytest.raises(error, match=match):
+        tcorr.correlation_route(dtype, c, w, md, s2)
+
+
+@pytest.mark.parametrize("c,w,kc,groups", [
+    (256, 80, 256, 1),      # the paths' map: both rows whole, two blocks an SM
+    (40, 11, 48, 1),        # channels rounded up to 16
+    (256, 240, 128, 1),     # 1080x1920 frames: 253,952 bytes whole, so halves
+    (512, 256, 176, 1),     # thirds, rounded up to 16
+    (1024, 80, 512, 1),     # halves
+    (32, 300, 32, 2),       # a map wider than one block's 256 columns
+    (16, 3600, 16, 15),     # the widest 16 channels fit
+])
+def test_correlation_band_shared_memory(c, w, kc, groups):
+    """Two staged rows of kc channels, columns rounded to 16 plus 8 of
+    padding: the fewest equal channel chunks that stay under a block's
+    232,448 bytes, and one block per 256 columns."""
+    plan = tcorr.band_plan(c, w)
+    wp = -(-w // 16) * 16
+    assert plan == (kc, 2 * kc * (wp + 8) * 2, groups)
+    assert plan.smem_bytes <= tcorr.SMEM_LIMIT and kc % 16 == 0
+    cp = -(-c // 16) * 16
+    chunks = -(-cp // kc)
+    # no fewer chunks would fit
+    assert chunks == 1 or (2 * (wp + 8) * 2
+                           * (-(-cp // (chunks - 1) // 16) * 16)
+                           > tcorr.SMEM_LIMIT)
+
+
+def test_correlation_wrapper_refuses_cpu_and_mismatched_tensors():
+    f = torch.zeros((1, 16, 4, 8), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcorr.correlation_cuda(f, f, 4, 1)
+    before = tcorr.correlation_cuda.launches
+    out = tcorr.correlation_nchw(f, f, 4, 1)       # the plain version
+    assert out.shape == (1, 81, 4, 8) and out.dtype == torch.float32
+    assert tcorr.correlation_cuda.launches == before
+
+
 def test_correlation_nchw_is_the_nhwc_volume():
     rng = np.random.default_rng(6)
     f1 = rng.normal(size=(2, 5, 6, 8)).astype(np.float32)
