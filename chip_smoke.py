@@ -20,7 +20,14 @@ that each print one or more lines:
      against its plain PyTorch version on the card at the paths' shapes
      (max error against a stated tolerance; its time beside the bound the
      card sets for the same work, the plain version's time and, for the
-     warp, the one library call that computes it, grid_sample; fused_stage,
+     warp, the one library call that computes it, grid_sample; the crop also
+     at the 384x288 presets' size, a 50x38 output, one crop, boxes off and
+     larger than the frame, 1080x1920 frames, an unaligned frame address and
+     a frame index out of range, with the bands it read from staged rows
+     and straight from the frame, crop_params on the card against the CPU
+     bit for bit, one device event a call, and two times: ``ms`` by events
+     around eager calls and ``device_ms`` from a CUDA graph of 20 calls, on
+     which its share of the bound is reckoned; fused_stage,
      in the form each chunk's shape dispatches to, also beside the same
      blocks through cuDNN bf16 convolutions);
   4. slice: three chained 16-frame 384x640 clips of slice 1 at full width
@@ -185,6 +192,59 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time of one ``fn()`` with no host work between its launches:
+    ``launches`` calls captured in one CUDA graph, the replays timed by CUDA
+    events. The calls run back to back, so inputs that fit the L2 stay
+    there."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(graph.replay, replays, warmup=1) / launches
+
+
+def device_events(fn, calls: int = 5) -> tuple:
+    """``fn()`` under torch.profiler: (device events per call, {kernel or
+    copy name: device ms per call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name, count = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            count += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.device_time_total / 1e3 / calls)
+    return count / calls, by_name
+
+
+def crop_case(rng, dev, persons: int = PERSONS, frame_hw=(FRAME_H, FRAME_W),
+              out_hw=(256, 192)):
+    """K1's inputs at the path's shape: one clip's uint8 frames (numpy), and
+    on the card the frame index, centers and scales of ``persons`` boxes per
+    frame, some hanging off the frame's edges."""
+    from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+
+    h, w = frame_hw
+    boxes = random_boxes(rng, FRAMES, persons, h, w).reshape(-1, 4)
+    centers, scales = batched_box_to_center_scale(boxes,
+                                                  out_hw[1] / out_hw[0])
+    centers = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
+    idx = torch.arange(FRAMES, device=dev).repeat_interleave(persons)
+    pixels = rng.integers(0, 256, (FRAMES, h, w, 3), np.uint8)
+    return pixels, idx, centers, scales
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke runs only "
@@ -221,59 +281,179 @@ def random_boxes(rng, f, p, h, w):
     return np.stack([x, y, bw, bh], -1).astype(np.float32)
 
 
-def phase_kernels():
+def check_crop(dev, rng):
+    """K1: crop_frames_cuda against crop_frames_plain on the path's shape in
+    the four type pairs and on the shapes that take the kernel's other
+    branches (which path each took is read from the kernel's own band
+    counts); crop_params on the card against the CPU, bit for bit; one call
+    is one device event; then the times."""
     from flowtrack_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-    from flowtrack_tpu_torch.ops import correlation as corr_mod
     from flowtrack_tpu_torch.ops import crop as crop_mod
-    from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+
+    u8, f32, bf16 = torch.uint8, torch.float32, torch.bfloat16
+    tols = {bf16: CROP_BF16_TOL, f32: CROP_F32_TOL}
+    norm = (IMAGENET_MEAN, IMAGENET_STD, 255.0)
+    pixels, idx, centers, scales = crop_case(rng, dev)
+    frames_u8 = torch.as_tensor(pixels, device=dev).contiguous()
+    worst = 0.0
+
+    def check(name, frames, idx, centers, scales, out_hw, out_dtype,
+              good=None, path=None):
+        """Kernel against plain on the crops ``good`` selects (all when
+        None); ``path`` names the path at least one band must have taken."""
+        nonlocal worst
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        got = crop_mod.crop_frames_cuda(frames, idx, centers, scales, out_hw,
+                                        *norm, out_dtype, band_counts=counts)
+        safe = idx.clamp(0, frames.shape[0] - 1)
+        want = crop_mod.crop_frames_plain(frames, safe, centers, scales,
+                                          out_hw, *norm, out_dtype)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == out_dtype,
+                f"crop {name}: {got.dtype} {tuple(got.shape)}")
+        sel = slice(None) if good is None else good
+        err = (got[sel].float() - want[sel].float()).abs().max().item()
+        tol = tols[out_dtype]
+        staged, direct = counts.tolist()
+        require(err <= tol, f"crop {name}: max err {err} > {tol}")
+        require(path is None or {"staged": staged, "direct": direct}[path] > 0,
+                f"crop {name}: no band took the {path} path "
+                f"(staged {staged}, direct {direct})")
+        worst = max(worst, err)
+        log("kernels", kernel="crop", case=name, frames=str(frames.dtype),
+            frame_hw=f"{frames.shape[1]}x{frames.shape[2]}",
+            out=str(out_dtype), out_hw=f"{out_hw[0]}x{out_hw[1]}",
+            crops=got.shape[0], bands_staged=staged, bands_direct=direct,
+            max_abs_err=err, tol=tol)
+        return got, want
+
+    # the path's shape in the four type pairs
+    for frames in (frames_u8.float(), frames_u8):
+        for out_dtype in (bf16, f32):
+            check("path", frames, idx, centers, scales, (256, 192), out_dtype,
+                  path="staged")
+    # the 384x288 presets' crops; a plane that is no multiple of 8 elements
+    # (scalar stores); one crop
+    for out_hw in ((384, 288), (50, 38)):
+        _, idx2, c2, s2 = crop_case(rng, dev, out_hw=out_hw)
+        for out_dtype in (bf16, f32):
+            check("out_size", frames_u8, idx2, c2, s2, out_hw, out_dtype)
+    check("one_crop", frames_u8, idx[5:6], centers[5:6], scales[5:6],
+          (256, 192), bf16)
+    # int32 indices select the same frames
+    a, _ = check("int32_index", frames_u8, idx.int(), centers, scales,
+                 (256, 192), bf16)
+    b = crop_mod.crop_frames_cuda(frames_u8, idx, centers, scales, (256, 192),
+                                  *norm, bf16)
+    require(torch.equal(a, b), "crop: int32 and int64 indices disagree")
+    # boxes wholly off the frame: the normalized zero (0 / 255 - mean) / std
+    off_c = torch.tensor([[-900.0, 100.0], [300.0, -1200.0], [2500.0, 2000.0],
+                          [300.0, 1500.0]], device=dev)
+    off_s = torch.tensor([[0.6, 0.8], [0.9, 1.2], [1.5, 2.0], [0.3, 0.4]],
+                         device=dev)
+    got, want = check("off_frame", frames_u8, idx[:4], off_c, off_s,
+                      (256, 192), f32)
+    zero = -torch.tensor(IMAGENET_MEAN, device=dev) / torch.tensor(
+        IMAGENET_STD, device=dev)
+    require(max((got - zero).abs().max().item(),
+                (want - zero).abs().max().item()) <= CROP_F32_TOL,
+            "crop: a box off the frame is not the normalized zero")
+    # boxes larger than the frame (s 4.2 to 10): the rectangle of a band
+    # exceeds the staging buffer, the kernel reads global memory
+    big_c = torch.tensor([[320.0, 192.0], [100.0, 300.0], [600.0, 50.0]],
+                         device=dev)
+    big_s = torch.tensor([[4.0, 5.4], [6.0, 8.0], [9.6, 12.8]], device=dev)
+    for frames in (frames_u8, frames_u8.float()):
+        for out_dtype in (bf16, f32):
+            check("larger_than_frame", frames, idx[:3], big_c, big_s,
+                  (256, 192), out_dtype, path="direct")
+    # 1080x1920 frames, uint8 and float32, boxes of 50 to 600 px
+    hd_pixels, hd_idx, hd_c, hd_s = crop_case(rng, dev, persons=1,
+                                              frame_hw=(1080, 1920))
+    hd = torch.as_tensor(hd_pixels[:4], device=dev).contiguous()
+    hd_s = hd_s * torch.linspace(1.0, 4.0, len(hd_s), device=dev)[:, None]
+    for frames, out_dtype in ((hd, bf16), (hd, f32), (hd.float(), bf16),
+                              (hd.float(), f32)):
+        check("1080p", frames, hd_idx % 4, hd_c, hd_s, (256, 192), out_dtype,
+              path="direct")
+    # frames at an address that is no multiple of 16: all direct
+    flat = torch.empty(frames_u8.numel() + 16, dtype=u8, device=dev)
+    shifted = flat[3:3 + frames_u8.numel()].view(frames_u8.shape)
+    shifted.copy_(frames_u8)
+    require(shifted.data_ptr() % 16 != 0 and shifted.is_contiguous(),
+            "unaligned frames")
+    check("unaligned_frames", shifted, idx, centers, scales, (256, 192), bf16,
+          path="direct")
+    # a frame index out of range: a NaN crop, its neighbours untouched
+    bad = idx.clone()
+    bad[[3, 77]] = torch.tensor([-1, FRAMES], device=dev)
+    good = torch.ones(len(bad), dtype=torch.bool, device=dev)
+    good[[3, 77]] = False
+    got, _ = check("bad_index", frames_u8, bad, centers, scales, (256, 192),
+                   f32, good=good)
+    require(torch.isnan(got[~good]).all().item()
+            and torch.isfinite(got[good]).all().item(),
+            "crop: an index out of range must give a NaN crop and only that")
+    # crop_params on the card equals the CPU's bit for bit (a division by a
+    # Python scalar would be a multiply by the rounded reciprocal there)
+    for out_hw in ((256, 192), (384, 288), (50, 38)):
+        on_card = crop_mod.crop_params(centers, scales, out_hw)
+        on_cpu = crop_mod.crop_params(centers.cpu(), scales.cpu(), out_hw)
+        differ = sum(int((a.cpu() != b).sum()) for a, b in zip(on_card, on_cpu))
+        require(differ == 0, f"crop_params {out_hw}: {differ} values differ "
+                             f"between the card and the CPU")
+        log("kernels", kernel="crop", check="crop_params card == cpu",
+            out_hw=f"{out_hw[0]}x{out_hw[1]}", boxes=len(centers), differ=0)
+
+    # timed at the main path's own types: the video's uint8 frames, as
+    # ClipTracker.prepare puts them on the card, -> bf16 crops
+    args = (frames_u8, idx, centers, scales, (256, 192), *norm, bf16)
+
+    def call():
+        return crop_mod.crop_frames_cuda(*args)
+
+    events, by_name = device_events(call)
+    require(events == 1 and all("crop" in k for k in by_name),
+            f"crop: one call must be one kernel and nothing else, got "
+            f"{events} device events: {sorted(by_name)}")
+    ms = time_ms(call, 200)
+    device_ms = graph_ms(call)
+    plain_ms = time_ms(lambda: crop_mod.crop_frames_plain(*args), 5)
+    # the recovery pass's launch: 16 crops
+    few = (frames_u8, idx[::PERSONS].contiguous(),
+           centers[::PERSONS].contiguous(), scales[::PERSONS].contiguous(),
+           (256, 192), *norm, bf16)
+    few_ms = time_ms(lambda: crop_mod.crop_frames_cuda(*few), 200)
+    few_device_ms = graph_ms(lambda: crop_mod.crop_frames_cuda(*few))
+    # per output value: 4 taps weighted and summed, scaled and normalised
+    # in float32 (about 10 operations); no one library call crops by boxes.
+    # The share of the bound is reckoned on the device time alone; `ms`, by
+    # events around eager calls, also holds the launch's host cost
+    crops = call()
+    bound = bound_fields(device_ms, bound_ms(
+        10.0 * crops.numel(), "float32",
+        (frames_u8, idx, centers, scales, crops)))
+    SUMMARY["k1_ms_device_ms"] = (round(ms, 4), round(device_ms, 4))
+    log("kernels", kernel="crop", frames=str(frames_u8.dtype),
+        out=str(crops.dtype), crops=crops.shape[0], device_events=events,
+        ms=ms, device_ms=device_ms, plain_ms=plain_ms, **bound,
+        recovery_crops=len(few[1]), recovery_ms=few_ms,
+        recovery_device_ms=few_device_ms)
+    return {"name": "crop_resize_normalize", "route": "cuda",
+            "source": "flowtrack_tpu_torch/csrc/crop.cu",
+            "replaces": "flowtrack_tpu/ops/crop.py:113",
+            "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def phase_kernels():
+    from flowtrack_tpu_torch.ops import correlation as corr_mod
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     results = []
 
-    # K1: the stage-2 crop of one clip, 8 persons per frame, 256x192 out
-    boxes = random_boxes(rng, FRAMES, PERSONS, FRAME_H, FRAME_W).reshape(-1, 4)
-    centers, scales = batched_box_to_center_scale(boxes, 192 / 256)
-    centers = torch.as_tensor(centers, dtype=torch.float32, device=dev)
-    scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
-    idx = torch.arange(FRAMES, device=dev).repeat_interleave(PERSONS)
-    pixels = rng.integers(0, 256, (FRAMES, FRAME_H, FRAME_W, 3), np.uint8)
-    worst = 0.0
-    for in_dtype in (torch.float32, torch.uint8):
-        frames = torch.as_tensor(pixels, device=dev).to(in_dtype).contiguous()
-        for out_dtype, tol in ((torch.bfloat16, CROP_BF16_TOL),
-                               (torch.float32, CROP_F32_TOL)):
-            args = (frames, idx, centers, scales, (256, 192),
-                    IMAGENET_MEAN, IMAGENET_STD, 255.0, out_dtype)
-            got = crop_mod.crop_frames_cuda(*args)
-            want = crop_mod.crop_frames_plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            require(err <= tol, f"crop {in_dtype}->{out_dtype}: max err "
-                                f"{err} > {tol}")
-            worst = max(worst, err)
-            log("kernels", kernel="crop", frames=str(in_dtype), out=str(out_dtype),
-                max_abs_err=err, tol=tol)
-    # timed at the main path's own types: the video's uint8 frames, as
-    # ClipTracker.prepare puts them on the card, -> bf16 crops
-    frames = torch.as_tensor(pixels, device=dev).contiguous()
-    require(frames.dtype == torch.uint8, f"frames {frames.dtype}")
-    args = (frames, idx, centers, scales, (256, 192), IMAGENET_MEAN,
-            IMAGENET_STD, 255.0, torch.bfloat16)
-    ms = time_ms(lambda: crop_mod.crop_frames_cuda(*args), 50)
-    plain_ms = time_ms(lambda: crop_mod.crop_frames_plain(*args), 5)
-    # per output value: 4 taps weighted and summed, scaled and normalised
-    # in float32 (about 10 operations); no one library call crops by boxes
-    crops = crop_mod.crop_frames_cuda(*args)
-    bound = bound_fields(ms, bound_ms(10.0 * crops.numel(), "float32",
-                                      (frames, idx, centers, scales, crops)))
-    log("kernels", kernel="crop", frames=str(frames.dtype),
-        out=str(crops.dtype), ms=ms, plain_ms=plain_ms, **bound)
-    results.append({"name": "crop_resize_normalize", "route": "cuda",
-                    "source": "flowtrack_tpu_torch/csrc/crop.cu",
-                    "replaces": "flowtrack_tpu/ops/crop.py:113",
-                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                    **bound, "library_ms": None})
+    results.append(check_crop(dev, rng))
 
     # K2: the FlowNetC cost volume of one clip's 15 pairs at 1/8 resolution
     shape = (FRAMES - 1, FRAME_H // 8, FRAME_W // 8, 256)
@@ -806,7 +986,7 @@ def phase_profile(tag, tracker, video, boxes, scores, valid):
     for e in device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total / 1e3
     ours = {k: round(sum(v for name, v in by_name.items() if k in name), 3)
-            for k in ("crop_resize_normalize_kernel", "correlation_kernel",
+            for k in ("crop_band_kernel", "correlation_kernel",
                       "correlation_mma_kernel", "resample2d_kernel",
                       "block_wgmma_kernel", "conv_wgmma_kernel")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]

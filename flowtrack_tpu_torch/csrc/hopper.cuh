@@ -1,6 +1,7 @@
-// Device helpers shared by the port's tensor-core kernels (sm_90a): shared
-// memory addresses, cp.async, ldmatrix and mma.sync (correlation.cu), and
-// Hopper's mbarrier, TMA loads and stores and wgmma (fused_stage.cu). Inline PTX only; nothing here launches a kernel.
+// Device helpers shared by the port's kernels (sm_90a): shared memory
+// addresses and cp.async (crop.cu, correlation.cu), ldmatrix and mma.sync
+// (correlation.cu), and Hopper's mbarrier, TMA loads and stores and wgmma
+// (fused_stage.cu). Inline PTX only; nothing here launches a kernel.
 
 #pragma once
 
@@ -19,12 +20,18 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // ---- cp.async, ldmatrix, mma.sync -----------------------------------------
 
-// 16-byte async copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int src_bytes = valid ? 16 : 0;
+// 16-byte async copy of the first `src_bytes` (0..16) bytes at src, the rest
+// of the destination filled with zeros.
+__device__ __forceinline__ void cp_async16_head(uint32_t dst, const void* src,
+                                                int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
+}
+
+// 16-byte async copy; not valid fills the destination with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  cp_async16_head(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -36,8 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ft_crop_resize_normalize": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I,
-                                 _F, _F, _F, _F, _F, _F, _F, _P, _I, _P],
+    "ft_crop_resize_normalize": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _I, _I,
+                                 _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _I,
+                                 _P, _P],
     "ft_correlation_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _P],
     "ft_resample2d_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

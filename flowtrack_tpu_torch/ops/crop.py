@@ -8,7 +8,9 @@ source note says what bounds it and how it is built.
 At inference the crop transform has no rotation, so the map is separable:
 crop pixel i of either axis reads source coordinate ``s * i + t`` with one
 isotropic ``s`` per person. ``crop_frames`` takes a whole clip's frames and a
-frame index per crop, so every crop of a clip is one kernel launch.
+frame index per crop, so every crop of a pose pass is one kernel launch and
+no other device operation: the kernel works out ``crop_params`` itself from
+the centers and scales, rounded as this module's ``crop_params`` rounds them.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the wrapper raises.
@@ -31,7 +33,10 @@ def crop_params(centers, scales, out_hw: Tuple[int, int]):
     centers = torch.as_tensor(centers, dtype=torch.float32)
     scales = torch.as_tensor(scales, dtype=torch.float32)
     src_w = scales[:, 0] * PIXEL_STD
-    s = src_w / out_w
+    # a true division on every device: by a Python scalar a CUDA tensor is
+    # multiplied by the rounded reciprocal, one ulp off where 1 / out_w is
+    # not exact (192, 288)
+    s = src_w / src_w.new_full((), out_w)
     tx = centers[:, 0] - s * (out_w * 0.5)
     ty = centers[:, 1] - s * (out_h * 0.5)
     return s, tx, s, ty
@@ -51,7 +56,8 @@ def _normalize(out, mean, std, rgb_max):
         return out
     mean = torch.as_tensor(mean, dtype=torch.float32, device=out.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=out.device)
-    return (out / rgb_max - mean) / std
+    # divisions by tensors, which stay true divisions on a CUDA device
+    return (out / out.new_full((), rgb_max) - mean) / std
 
 
 def crop_frames_plain(frames, frame_idx, centers, scales, out_hw,
@@ -71,13 +77,29 @@ def crop_frames_plain(frames, frame_idx, centers, scales, out_hw,
     return _normalize(out, mean, std, rgb_max).to(out_dtype)
 
 
+def _on_device(x, dev, dtypes):
+    """``x`` as a contiguous tensor on ``dev`` in one of ``dtypes`` (the
+    first if it has another): no operation when it already is."""
+    x = torch.as_tensor(x, device=dev)
+    if x.dtype not in dtypes:
+        x = x.to(dtypes[0])
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
                      mean=None, std=None, rgb_max: float = 255.0,
-                     out_dtype=torch.float32):
+                     out_dtype=torch.float32, band_counts=None):
     """Launch K1. frames (F, H, W, 3) uint8 or float32, contiguous, on a
     CUDA device -> (P, out_h, out_w, 3) in ``out_dtype`` (float32 or
     bfloat16), a channel-last view of the (P, 3, out_h, out_w) buffer the
-    kernel writes. A frame index outside [0, F) gives a NaN crop."""
+    kernel writes. A frame index outside [0, F) gives a NaN crop.
+
+    With float32 ``centers`` and ``scales`` and an int64 or int32
+    ``frame_idx`` on the frames' device the call is one kernel launch and no
+    other device operation; inputs of another type or place are converted
+    first. ``band_counts``, two int32 on the device, receives the number of
+    bands the launch read from staged rows ([0]) and straight from the
+    frame ([1]), for a check of which path a shape takes."""
     out_h, out_w = out_hw
     if frames.device.type != "cuda":
         raise RuntimeError(f"crop kernel needs CUDA tensors, got {frames.device}")
@@ -87,26 +109,38 @@ def crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
         raise TypeError(f"frames must be uint8 or float32, got {frames.dtype}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
+    n_frames, h, w = frames.shape[:3]
+    if h < 2 or w < 2 or h * w * 3 * frames.element_size() >= 2 ** 31:
+        raise ValueError(f"frames of {h}x{w} pixels: the kernel takes 2x2 "
+                         f"up to a frame of 2^31 bytes")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     dev = frames.device
-    sx, tx, sy, ty = crop_params(torch.as_tensor(centers, device=dev),
-                                 torch.as_tensor(scales, device=dev), out_hw)
-    params = torch.stack([sx, tx, sy, ty], dim=1).contiguous()
-    idx = torch.as_tensor(frame_idx, device=dev).to(torch.int32).contiguous()
-    p = params.shape[0]
+    centers = _on_device(centers, dev, (torch.float32,))
+    scales = _on_device(scales, dev, (torch.float32,))
+    idx = _on_device(frame_idx, dev, (torch.int64, torch.int32))
+    p = centers.shape[0]
+    if centers.shape != (p, 2) or scales.shape != (p, 2):
+        raise ValueError(f"centers and scales must be (P, 2), got "
+                         f"{tuple(centers.shape)} and {tuple(scales.shape)}")
     if idx.shape != (p,):
         raise ValueError(f"frame_idx must be ({p},), got {tuple(idx.shape)}")
+    if band_counts is not None and (
+            band_counts.dtype != torch.int32 or band_counts.shape != (2,)
+            or band_counts.device != dev):
+        raise ValueError("band_counts must be two int32 on the frames' device")
     out = torch.empty((p, 3, out_h, out_w), dtype=out_dtype, device=dev)
-    if p:
+    if p and out_h and out_w:
         m = (0.0, 0.0, 0.0) if mean is None else tuple(float(v) for v in mean)
         s = (1.0, 1.0, 1.0) if mean is None else tuple(float(v) for v in std)
         r = 1.0 if mean is None else float(rgb_max)
         err = kernels.library().ft_crop_resize_normalize(
-            frames.data_ptr(), int(frames.dtype == torch.uint8),
-            frames.shape[0], frames.shape[1], frames.shape[2],
-            idx.data_ptr(), params.data_ptr(), p, out_h, out_w,
-            r, *m, *s, out.data_ptr(), int(out_dtype == torch.bfloat16),
+            frames.data_ptr(), int(frames.dtype == torch.uint8), n_frames, h,
+            w, idx.data_ptr(), int(idx.dtype == torch.int64),
+            centers.data_ptr(), scales.data_ptr(), p, out_h, out_w,
+            PIXEL_STD, r, *m, *s, out.data_ptr(),
+            int(out_dtype == torch.bfloat16),
+            None if band_counts is None else band_counts.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(err, "crop")
         crop_frames_cuda.launches += 1

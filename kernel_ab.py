@@ -1,7 +1,7 @@
-"""Old against new, in turns, for the two redesigned kernels of the port.
+"""Old against new, in turns, for the redesigned kernels of the port.
 
     git archive <commit before the redesign> | tar -x -C build/parent
-    python3 kernel_ab.py --old build/parent [--quick]
+    python3 kernel_ab.py --old build/parent [--quick] [--only crop|correlation|fused_stage]
 
 On one NVIDIA GPU (an H100), inside one call, so that both sides see the
 same card, clocks and neighbours: four worker processes in the order old,
@@ -14,6 +14,12 @@ file), building that tree's kernels and timing
 
   K2 ``correlation``: the path's 15 pairs of 48x80x256 bfloat16 features
   through ``correlation_cuda``, first held to ``correlation_plain``.
+
+  K1 ``crop``: a clip's 128 detector crops and the recovery pass's 16, from
+  uint8 frames of 384x640 to 256x192 bfloat16, through ``crop_frames_cuda``,
+  first held to ``crop_frames_plain``: the wrapper's time by events around
+  eager calls, the device time of a call alone (20 calls in one CUDA graph),
+  the crop kernel's own time and the device events of a profiled call.
 
 It prints the card's name and power limit, what ``ptxas -v`` said of each
 kernel of the new tree (registers, spills), one line per worker with the
@@ -38,17 +44,38 @@ import chip_smoke as cs
 HERE = Path(__file__).resolve().parent
 KERNELS = ("block_wgmma_kernel", "conv_wgmma_kernel", "fused_conv_kernel",
            "correlation_mma_kernel", "correlation_kernel",
-           "crop_resize_normalize_kernel", "resample2d_kernel")
+           "crop_band_kernel", "resample2d_kernel")
+
+
+TYPE_CODES = {"h": "uint8", "f": "float", "i": "int"}
 
 
 def kernel_name(mangled: str) -> str:
-    """``block_wgmma_kernel<64,1>`` from an entry's mangled name."""
+    """``block_wgmma_kernel<64,1>`` or ``crop_band_kernel<uint8,
+    __nv_bfloat16,0>`` from an entry's mangled name."""
     for name in KERNELS:
         at = mangled.find(name)
-        if at >= 0:
-            m = re.match(r"I((?:L[ib]\d+E)+)E", mangled[at + len(name):])
-            args = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
-            return name + (f"<{','.join(args)}>" if args else "")
+        if at < 0:
+            continue
+        rest, args = mangled[at + len(name):], []
+        if rest[:1] == "I":
+            rest = rest[1:]
+            while rest and rest[0] != "E":
+                m = re.match(r"L[ib](\d+)E", rest)
+                n = re.match(r"\d+", rest)
+                if m:
+                    args.append(m.group(1))
+                    rest = rest[m.end():]
+                elif n:
+                    end = n.end() + int(n.group())
+                    args.append(rest[n.end():end])
+                    rest = rest[end:]
+                elif rest[0] in TYPE_CODES:
+                    args.append(TYPE_CODES[rest[0]])
+                    rest = rest[1:]
+                else:
+                    break
+        return name + (f"<{','.join(args)}>" if args else "")
     return mangled[:60]
 
 
@@ -132,7 +159,50 @@ def k2(quick: bool) -> dict:
     return row
 
 
-def worker(tree: str, side: str, quick: bool) -> int:
+def k1(quick: bool) -> dict:
+    """K1 at the path's two launches (a clip's 128 detector crops, and the
+    recovery pass's 16) from uint8 frames to bfloat16 crops: held to
+    ``crop_frames_plain``; then the wrapper's time by events, the device
+    time of a call with no host work between launches (a CUDA graph of 20
+    calls), and from one profiled call the device events it makes and the
+    crop kernel's own device time."""
+    import numpy as np
+
+    from flowtrack_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from flowtrack_tpu_torch.ops import crop as crop_mod
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, persons in (("clip_128", cs.PERSONS), ("recovery_16", 1)):
+        rng = np.random.default_rng(cs.SEED)
+        pixels, idx, centers, scales = cs.crop_case(rng, dev, persons)
+        frames = torch.as_tensor(pixels, device=dev).contiguous()
+        args = (frames, idx, centers, scales, (256, 192), IMAGENET_MEAN,
+                IMAGENET_STD, 255.0, torch.bfloat16)
+        got = crop_mod.crop_frames_cuda(*args)
+        want = crop_mod.crop_frames_plain(*args)
+        torch.cuda.synchronize()
+        row = {"crops": got.shape[0],
+               "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        cs.require(row["max_abs_err"] <= cs.CROP_BF16_TOL,
+                   f"crop {name}: {row['max_abs_err']} > {cs.CROP_BF16_TOL}")
+        if not quick:
+            def call():
+                return crop_mod.crop_frames_cuda(*args)
+
+            bound, by = cs.bound_ms(10.0 * got.numel(), "float32",
+                                    (frames, idx, centers, scales, got))
+            events, by_name = cs.device_events(call)
+            row.update(
+                wrapper_ms=cs.time_ms(call, 200),
+                device_ms=cs.graph_ms(call),
+                kernel_ms=sum(v for k, v in by_name.items() if "crop" in k),
+                device_events=events, bound_ms=bound, bound_by=by)
+        out[name] = row
+    return out
+
+
+def worker(tree: str, side: str, quick: bool, only) -> int:
     """One side's checks and timings with ``tree``'s port."""
     root = Path(tree).resolve()
     # only this tree's port: the package has no __init__.py of its own, so
@@ -149,8 +219,10 @@ def worker(tree: str, side: str, quick: bool) -> int:
         for row in ptxas_report(kernels.library_path()):
             cs.log("ptxas", kernel=row[0], registers=row[1],
                    spill_stores=row[2], spill_loads=row[3])
-    result = {"side": side, "card": card, "correlation": k2(quick),
-              "fused_stage": k5(quick)}
+    checks = {"crop": k1, "correlation": k2, "fused_stage": k5}
+    result = {"side": side, "card": card,
+              **{name: fn(quick) for name, fn in checks.items()
+                 if only in (None, name)}}
     print(json.dumps(result), flush=True)
     return 0
 
@@ -158,9 +230,12 @@ def worker(tree: str, side: str, quick: bool) -> int:
 def main() -> int:
     args = sys.argv[1:]
     quick = "--quick" in args
+    only = args[args.index("--only") + 1] if "--only" in args else None
+    if only not in (None, "crop", "correlation", "fused_stage"):
+        raise SystemExit(__doc__)
     if "--side" in args:
         return worker(args[args.index("--tree") + 1],
-                      args[args.index("--side") + 1], quick)
+                      args[args.index("--side") + 1], quick, only)
     if "--old" not in args:
         raise SystemExit(__doc__)
     trees = {"old": args[args.index("--old") + 1], "new": str(HERE)}
@@ -169,7 +244,8 @@ def main() -> int:
     rows = []
     for side in ("old", "new", "new", "old"):
         cmd = [sys.executable, str(HERE / "kernel_ab.py"), "--side", side,
-               "--tree", trees[side]] + (["--quick"] if quick else [])
+               "--tree", trees[side]] + (["--quick"] if quick else []) \
+            + (["--only", only] if only else [])
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=900)
         sys.stdout.write(proc.stdout)
@@ -181,9 +257,15 @@ def main() -> int:
     if not quick:
         for side in ("old", "new"):
             mine = [r for r in rows if r["side"] == side]
-            result[f"correlation_{side}_ms"] = [r["correlation"]["ms"]
-                                                for r in mine]
-            for chunk in mine[0]["fused_stage"]:
+            if "correlation" in mine[0]:
+                result[f"correlation_{side}_ms"] = [r["correlation"]["ms"]
+                                                    for r in mine]
+            for case in mine[0].get("crop", ()):
+                for key in ("wrapper_ms", "device_ms", "kernel_ms",
+                            "device_events"):
+                    result[f"crop_{case}_{side}_{key}"] = [
+                        r["crop"][case][key] for r in mine]
+            for chunk in mine[0].get("fused_stage", ()):
                 result[f"fused_stage_{chunk}_{side}_ms"] = [
                     r["fused_stage"][chunk]["ms"] for r in mine]
     print(json.dumps(result), flush=True)
