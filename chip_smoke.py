@@ -9,8 +9,11 @@ at 256x192 with FlowNetC; slice 2, the paper's full pipeline
 (experiments/flowtrack_posetrack_flownet2.yaml), PoseResNet-152 at 256x192
 with the FlowNet2 cascade; slice 3, the BN-folded fused backbone
 (``BENCH_FUSED=1 python bench.py``): the coco_res50_256x192 config as it
-stands, PoseResNet-50 folded into ``FusedPoseResNet`` with FlowNetS. Phases
-that each print one or more lines:
+stands, PoseResNet-50 folded into ``FusedPoseResNet`` with FlowNetS; and
+the serving slice on slice 1's models: ``serving.MultiStreamTracker``,
+``serving.StreamingClipTracker`` and the per-frame ``tracking.FlowTracker``
+over ``pipeline.PosePredictor`` and ``FlowPredictor``. Phases that each
+print one or more lines:
 
   1. device: refuses to run without CUDA; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -47,16 +50,39 @@ that each print one or more lines:
      the FlowNet2 cascade's full-resolution flow on 360x640 frames); ids
      must stay stable across clip boundaries and survive a dropped
      detection, and equal the port's plain run on the CPU;
-  8. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
+  8. serving: slice 1's models at full width (every candidate kept); four
+     streams of 40 frames submitted in turns to MultiStreamTracker
+     (16-frame clips, the four streams batched as lanes of one run) at
+     pipeline depths 0 and 1, with the launches of one batched step read
+     around it (2 crop launches, 1 correlation launch, for four lanes); how
+     far the nets' outputs move with the batch; each stream's emissions
+     equal to track_video_clips on it alone with the nets called at one
+     lane's batch, and the path's own divergence; the planted stubs
+     through it with a detection dropped at a clip boundary, one id a
+     person, equal to the CPU's run; StreamingClipTracker on 32 frames equal to
+     track_video_clips at clip length 2, its submit-to-emit latency after a
+     warm-up; FlowTracker over PosePredictor and FlowPredictor, its ms per
+     frame and its planted ids equal to the CPU's; track_clips of 4 lanes
+     against 4 track_clip calls in turns (frames/s of both, every slot
+     equal with the nets at one lane's batch); device events per lane-clip
+     at C=1 and C=4 under torch.profiler;
+  9. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
      float32 glue) against float32 ones with the same weights, and the
      fused R50 against the unfused bf16 and float32 ones, at full width.
 
+Phase 3 also holds the divisions by a constant on the slice's path (the
+recovery crops' centers and scales, the decode's inverse map, the flow's
+pair normalisation) on the card to the CPU bit for bit. A profile that
+records no device event is taken again once, and fails the run if the
+second is empty too.
+
 Then a short ``[summary]`` line repeating the run's headline numbers (build
 seconds, K5's chunk times, frames/s and the profiled clip's wall, busy and
-idle share per path, the fused R50's errors), a JSON line with each
-kernel's numbers (launches from the fused path for crop and fused_stage,
-which must equal what the blocks' forms give, from the FlowNet2 path for
-correlation and resample2d) and, last, the
+idle share per path, the fused R50's errors, the serving numbers), a JSON
+line with each kernel's numbers (launches from the fused path for crop and
+fused_stage, which must equal what the blocks' forms give, from the
+FlowNet2 path for correlation and resample2d; ``launches_by_path`` holds
+each path's counts, the serving run's included) and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero.
 It needs the repository checkout (it imports the port from beside this
@@ -139,6 +165,17 @@ FLOWNET2_BF16_REL_TOL = 0.25
 # operations per second by operand type, and bytes per second of HBM
 PEAK_OPS = {"bf16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# the serving phase: 4 streams of 40 frames (two 16-frame clips chained by
+# their overlap frame, then a ragged tail of 10), StreamingClipTracker on
+# 32 frames, the per-frame FlowTracker on 16
+SERVE_STREAMS, SERVE_FRAMES = 4, 40
+STREAM_FRAMES, FLOWTRACKER_FRAMES = 32, 16
+# the planted stubs' constant motion, px per frame
+PLANTED_VEL = (3.0, 1.5)
+# card against card (a batched lane against its stream alone): the CPU
+# tests' joint tolerance; card against CPU: the planted-pose phase's
+SAME_DEVICE_JOINT_TOL = 1e-3
+CPU_JOINT_TOL = 0.5
 # the run's headline numbers, printed again on one short line near the end
 SUMMARY: dict = {}
 
@@ -228,20 +265,22 @@ def device_events(fn, calls: int = 5) -> tuple:
 
 
 def crop_case(rng, dev, persons: int = PERSONS, frame_hw=(FRAME_H, FRAME_W),
-              out_hw=(256, 192)):
-    """K1's inputs at the path's shape: one clip's uint8 frames (numpy), and
-    on the card the frame index, centers and scales of ``persons`` boxes per
-    frame, some hanging off the frame's edges."""
+              out_hw=(256, 192), frames: int = FRAMES):
+    """K1's inputs at the path's shape: ``frames`` uint8 frames (numpy; one
+    clip's, or C lanes' of a batched step, lane i's at i * FRAMES), and on
+    the card the frame index (int64, as ClipTracker._clip makes it),
+    centers and scales of ``persons`` boxes per frame, some hanging off the
+    frame's edges."""
     from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
 
     h, w = frame_hw
-    boxes = random_boxes(rng, FRAMES, persons, h, w).reshape(-1, 4)
+    boxes = random_boxes(rng, frames, persons, h, w).reshape(-1, 4)
     centers, scales = batched_box_to_center_scale(boxes,
                                                   out_hw[1] / out_hw[0])
     centers = torch.as_tensor(centers, dtype=torch.float32, device=dev)
     scales = torch.as_tensor(scales, dtype=torch.float32, device=dev)
-    idx = torch.arange(FRAMES, device=dev).repeat_interleave(persons)
-    pixels = rng.integers(0, 256, (FRAMES, h, w, 3), np.uint8)
+    idx = torch.arange(frames, device=dev).repeat_interleave(persons)
+    pixels = rng.integers(0, 256, (frames, h, w, 3), np.uint8)
     return pixels, idx, centers, scales
 
 
@@ -298,9 +337,11 @@ def check_crop(dev, rng):
     worst = 0.0
 
     def check(name, frames, idx, centers, scales, out_hw, out_dtype,
-              good=None, path=None):
+              good=None, path=None, whole_grid=False):
         """Kernel against plain on the crops ``good`` selects (all when
-        None); ``path`` names the path at least one band must have taken."""
+        None); ``path`` names the path at least one band must have taken;
+        with ``whole_grid`` every band of every crop must be counted once,
+        by one path or the other."""
         nonlocal worst
         counts = torch.zeros(2, dtype=torch.int32, device=dev)
         got = crop_mod.crop_frames_cuda(frames, idx, centers, scales, out_hw,
@@ -316,6 +357,10 @@ def check_crop(dev, rng):
         tol = tols[out_dtype]
         staged, direct = counts.tolist()
         require(err <= tol, f"crop {name}: max err {err} > {tol}")
+        bands = got.shape[0] * -(-out_hw[0] // 8)
+        require(not whole_grid or staged + direct == bands,
+                f"crop {name}: {staged} + {direct} bands read, the grid has "
+                f"{bands}")
         require(path is None or {"staged": staged, "direct": direct}[path] > 0,
                 f"crop {name}: no band took the {path} path "
                 f"(staged {staged}, direct {direct})")
@@ -331,7 +376,27 @@ def check_crop(dev, rng):
     for frames in (frames_u8.float(), frames_u8):
         for out_dtype in (bf16, f32):
             check("path", frames, idx, centers, scales, (256, 192), out_dtype,
-                  path="staged")
+                  path="staged", whole_grid=True)
+    # a batched serving step of SERVE_STREAMS lanes: one launch for its
+    # C*F*P crops from the lanes' C*F frames (512 crops x 32 bands from 64
+    # frames), and its recovery pass's budget of F crops a lane at the
+    # lanes' frame offsets
+    lane_pixels, lane_idx, lane_c, lane_s = crop_case(
+        rng, dev, frames=SERVE_STREAMS * FRAMES)
+    lane_frames = torch.as_tensor(lane_pixels, device=dev).contiguous()
+    rec_idx = (torch.arange(SERVE_STREAMS, device=dev)[:, None] * FRAMES
+               + torch.as_tensor(rng.integers(0, FRAMES, (SERVE_STREAMS,
+                                                          FRAMES)),
+                                 device=dev)).reshape(-1)
+    rec_pick = torch.as_tensor(rng.choice(len(lane_idx), len(rec_idx),
+                                          replace=False), device=dev)
+    lane_cases = {
+        "serving_step": (lane_frames, lane_idx, lane_c, lane_s),
+        "serving_recovery": (lane_frames, rec_idx, lane_c[rec_pick],
+                             lane_s[rec_pick])}
+    for name, case in lane_cases.items():
+        for out_dtype in (bf16, f32):
+            check(name, *case, (256, 192), out_dtype, whole_grid=True)
     # the 384x288 presets' crops; a plane that is no multiple of 8 elements
     # (scalar stores); one crop
     for out_hw in ((384, 288), (50, 38)):
@@ -425,6 +490,12 @@ def check_crop(dev, rng):
            (256, 192), *norm, bf16)
     few_ms = time_ms(lambda: crop_mod.crop_frames_cuda(*few), 200)
     few_device_ms = graph_ms(lambda: crop_mod.crop_frames_cuda(*few))
+    step = (*lane_cases["serving_step"], (256, 192), *norm, bf16)
+    step_ms = time_ms(lambda: crop_mod.crop_frames_cuda(*step), 50)
+    step_device_ms = graph_ms(lambda: crop_mod.crop_frames_cuda(*step))
+    step_crops = crop_mod.crop_frames_cuda(*step)
+    step_bound = bound_ms(10.0 * step_crops.numel(), "float32",
+                          (*lane_cases["serving_step"], step_crops))
     # per output value: 4 taps weighted and summed, scaled and normalised
     # in float32 (about 10 operations); no one library call crops by boxes.
     # The share of the bound is reckoned on the device time alone; `ms`, by
@@ -439,11 +510,51 @@ def check_crop(dev, rng):
         ms=ms, device_ms=device_ms, plain_ms=plain_ms, **bound,
         recovery_crops=len(few[1]), recovery_ms=few_ms,
         recovery_device_ms=few_device_ms)
+    log("kernels", kernel="crop", case="serving_step", frames=len(step[0]),
+        crops=step_crops.shape[0], ms=step_ms, device_ms=step_device_ms,
+        bound_ms=step_bound[0], bound_by=step_bound[1],
+        bound_share=step_bound[0] / step_device_ms)
     return {"name": "crop_resize_normalize", "route": "cuda",
             "source": "flowtrack_tpu_torch/csrc/crop.cu",
             "replaces": "flowtrack_tpu/ops/crop.py:113",
             "max_abs_err": worst, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def check_divisions(dev, rng):
+    """The divisions by a constant on the slice's path, on the card against
+    the CPU bit for bit (a division by a Python scalar would be a multiply
+    by the rounded reciprocal there): the recovery crops' centers and
+    scales, the decode's inverse map and the flow's pair normalisation, at
+    the path's shapes."""
+    from flowtrack_tpu_torch.models.flownet import preprocess_pair
+    from flowtrack_tpu_torch.ops.affine import get_affine_transform_inv
+    from flowtrack_tpu_torch.tracking.clip_pipeline import (
+        _box_xyxy_to_center_scale,
+    )
+
+    xy = rng.uniform(-50, FRAME_W, (4096, 2))
+    boxes = torch.as_tensor(
+        np.concatenate([xy, xy + rng.uniform(0.5, 400, (4096, 2))], 1),
+        dtype=torch.float32)
+    centers, scales = _box_xyxy_to_center_scale(boxes, 192 / 256)
+    frames = torch.as_tensor(rng.integers(0, 256, (FRAMES, FRAME_H, FRAME_W,
+                                                   3), np.uint8))
+    cases = {
+        "box_xyxy_to_center_scale": lambda d: _box_xyxy_to_center_scale(
+            boxes.to(d), 192 / 256),
+        "affine_transform_inv": lambda d: (get_affine_transform_inv(
+            centers.to(d), scales.to(d), (48, 64)),),
+        "preprocess_pair": lambda d: (preprocess_pair(
+            frames[:-1].to(d), frames[1:].to(d)),),
+    }
+    for name, fn in cases.items():
+        on_card, on_cpu = fn(dev), fn(torch.device("cpu"))
+        differ = sum(int((a.cpu() != b).sum()) for a, b in zip(on_card, on_cpu))
+        values = sum(b.numel() for b in on_cpu)
+        require(differ == 0, f"{name}: {differ} of {values} values differ "
+                             f"between the card and the CPU")
+        log("kernels", check=f"{name} card == cpu", values=values, differ=0)
 
 
 def phase_kernels():
@@ -454,6 +565,7 @@ def phase_kernels():
     results = []
 
     results.append(check_crop(dev, rng))
+    check_divisions(dev, rng)
 
     # K2: the FlowNetC cost volume of one clip's 15 pairs at 1/8 resolution
     shape = (FRAMES - 1, FRAME_H // 8, FRAME_W // 8, 256)
@@ -468,6 +580,27 @@ def phase_kernels():
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     require(err <= CORR_TOL, f"correlation: max err {err} > {CORR_TOL}")
+    # a batched serving step: the C*(F-1) = 60 in-lane pairs of 4 lanes in
+    # one launch
+    lane_shape = (SERVE_STREAMS * (FRAMES - 1), *shape[1:])
+    l1, l2 = (torch.as_tensor(rng.standard_normal(lane_shape), device=dev
+                              ).to(torch.bfloat16) for _ in range(2))
+    l1n, l2n = (x.permute(0, 3, 1, 2).contiguous() for x in (l1, l2))
+    got_l = corr_mod.correlation_cuda(l1n, l2n, 20, 2)
+    want_l = corr_mod.correlation_plain(l1, l2, 20, 2).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    err_l = (got_l - want_l).abs().max().item()
+    require(got_l.shape == want_l.shape and err_l <= CORR_TOL,
+            f"correlation {lane_shape[0]} pairs: shape {tuple(got_l.shape)}, "
+            f"max err {err_l} > {CORR_TOL}")
+    del got_l, want_l
+    lane_ms = time_ms(lambda: corr_mod.correlation_cuda(l1n, l2n, 20, 2), 10)
+    lane_bound = correlation_bound_ms(*l1n.shape, 21)
+    log("kernels", kernel="correlation", case="serving_step",
+        pairs=lane_shape[0], max_abs_err=err_l, tol=CORR_TOL, ms=lane_ms,
+        bound_ms=lane_bound[0], bound_by=lane_bound[1],
+        bound_share=lane_bound[0] / lane_ms)
+    err = max(err, err_l)
     # bf16 features on a ragged map (W no multiple of 8, C none of 16, odd
     # stride2): the tensor-core kernel's masks; a 1080x1920 video's map,
     # whose 256 channels go through in two chunks; a ragged map wider than
@@ -878,16 +1011,21 @@ def drive_path(tag, card, cfg, frame_hw, path_kernels, pose_model=None):
     return launches
 
 
-def phase_slice(card):
-    """Slice 1: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
+def slice_config():
+    """Slice 1's config: R50 256x192 + FlowNetC, bf16, flip test, recovery,
+    the smoke's 8 persons and 4 recovery slots."""
     from flowtrack_tpu_torch.config import get_config
 
     base = get_config("coco_res50_256x192")
-    cfg = replace(base, flow=replace(base.flow, variant="flownet_c",
-                                     use_pallas_corr=True),
-                  track=replace(base.track, max_persons=PERSONS,
-                                max_recovered=RECOVERED))
-    return drive_path("slice", card, cfg, (FRAME_H, FRAME_W),
+    return replace(base, flow=replace(base.flow, variant="flownet_c",
+                                      use_pallas_corr=True),
+                   track=replace(base.track, max_persons=PERSONS,
+                                 max_recovered=RECOVERED))
+
+
+def phase_slice(card):
+    """Slice 1: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
+    return drive_path("slice", card, slice_config(), (FRAME_H, FRAME_W),
                       ("crop_resize_normalize", "correlation"))
 
 
@@ -949,28 +1087,45 @@ def phase_fused(card):
     return launches
 
 
+def profile_run(tag, run):
+    """``run()`` under torch.profiler, ending in a synchronize: (profile,
+    wall ms, device events). Device work is kernels and copies; the clip.*
+    ranges also appear as device-side annotations spanning their kernels,
+    so they are left out. A profile with no device event (the profiler's
+    fault: it happened once on a path whose kernels had all launched) is
+    taken again once; a second empty one raises, so no line reads 100%
+    idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("clip.")]
+        if device:
+            return prof, wall_ms, device
+        log("profile", path=tag, attempt=attempt, device_events=0,
+            note="no device events recorded" + ("; profiling again"
+                                                if attempt == 1 else ""))
+    raise AssertionError(f"{tag}: two profiles recorded no device event")
+
+
 def phase_profile(tag, tracker, video, boxes, scores, valid):
     """One clip under torch.profiler: wall time, device busy time and idle
     share, device events, host syncs, each clip.* stage's host ms, kernel ms
     and device span ms, the port's kernels' device ms, and the heaviest
     device ops."""
-    from torch.profiler import ProfilerActivity, profile
-
     sl = slice(0, FRAMES)
     args = tracker.prepare(video[sl], boxes[sl], scores[sl], valid[sl])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tracker.to_host(tracker.run_prepared(args))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms, device = profile_run(
+        tag, lambda: tracker.to_host(tracker.run_prepared(args)))
     events = prof.events()
-    # device work = kernels and copies; the clip.* ranges also appear as
-    # device-side annotations spanning their kernels, so they are left out
-    device = [e for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith("clip.")]
     busy_ms = sum(e.device_time_total for e in device) / 1e3
     host_syncs = sum(e.name == "aten::_local_scalar_dense" for e in events)
     stages = {}
@@ -1052,22 +1207,30 @@ class ConstantFullResFlow(torch.nn.Module):
         return (self.vel * scale).view(1, 2, 1, 1).expand(n, 2, h, w)
 
 
+def planted_config(variant="flownet_c"):
+    """The planted-pose phases' config: coco_res50_256x192 without flip
+    test, ``variant``'s flow convention, 4 person slots, 4 recovery
+    slots."""
+    from flowtrack_tpu_torch.config import get_config
+
+    base = get_config("coco_res50_256x192")
+    return replace(base, test=replace(base.test, flip_test=False),
+                   flow=replace(base.flow, variant=variant),
+                   track=replace(base.track, max_persons=4,
+                                 max_recovered=RECOVERED))
+
+
 def phase_tracking(variant, frame_hw):
     """Planted-heatmap pose + constant-flow stubs through the real crop
     kernel, decode and scans, under ``variant``'s flow convention: ids
     stable across clip boundaries and through dropped detections, and equal
     to the port's plain run on the CPU."""
-    from flowtrack_tpu_torch.config import get_config
     from flowtrack_tpu_torch.models.flownet import flow_output_is_full_res
     from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
 
-    base = get_config("coco_res50_256x192")
-    persons = 4
-    cfg = replace(base, test=replace(base.test, flip_test=False),
-                  flow=replace(base.flow, variant=variant),
-                  track=replace(base.track, max_persons=persons,
-                                max_recovered=RECOVERED))
-    vel = (3.0, 1.5)
+    cfg = planted_config(variant)
+    persons = cfg.track.max_persons
+    vel = PLANTED_VEL
     h, w = frame_hw
     rng = np.random.default_rng(SEED + 1)
     n_frames = CLIPS * (FRAMES - 1) + 1
@@ -1121,6 +1284,427 @@ def phase_tracking(variant, frame_hw):
     log("tracking", flow=variant, frame_hw=f"{h}x{w}",
         clips=len(results["cuda"]), ids=person_ids,
         recovered_frames=recovered, cpu_equal=True)
+
+
+def ragged(boxes, scores, valid):
+    """Padded (F, P) detections -> per-frame lists of the valid boxes and
+    scores, as a detector hands them to the serving classes."""
+    return ([b[v] for b, v in zip(boxes, valid)],
+            [s[v] for s, v in zip(scores, valid)])
+
+
+def serve(tracker, streams, depth):
+    """Every stream's frames submitted in turns, one frame of each stream
+    a tick, to a MultiStreamTracker of 16-frame clips batching all streams,
+    stepping each tick, then flushed: -> ({stream: per-frame tracks},
+    latency stats). Every frame must be emitted exactly once."""
+    from flowtrack_tpu_torch.serving import MultiStreamTracker
+
+    mst = MultiStreamTracker(tracker, clip_len=FRAMES,
+                             batch_streams=len(streams), pipeline_depth=depth)
+    n = len(next(iter(streams.values()))[0])
+    emitted = []
+    for t in range(n):
+        for sid, (frames, boxes, scores) in streams.items():
+            mst.submit(sid, frames[t], boxes[t], scores[t])
+        emitted += mst.step()
+    emitted += mst.flush()
+    got = {sid: [None] * n for sid in streams}
+    for sid, first, tracks in emitted:
+        for i, fr in enumerate(tracks):
+            require(got[sid][first + i] is None,
+                    f"serving: {sid} frame {first + i} emitted twice")
+            got[sid][first + i] = fr
+    require(all(fr is not None for per in got.values() for fr in per),
+            "serving: a frame was never emitted")
+    return got, mst.latency_stats()
+
+
+def same_emissions(what, got, want, joint_tol) -> int:
+    """Per frame the same tracks in the same order with the same ids, joints
+    within ``joint_tol`` px, and maxvals and scores within ``joint_tol``
+    where both sides carry them; returns the number of tracks compared."""
+    require(len(got) == len(want), f"{what}: {len(got)} != {len(want)} frames")
+    tracks = 0
+    for t, (g, w) in enumerate(zip(got, want)):
+        gi, wi = [x["track_id"] for x in g], [x["track_id"] for x in w]
+        require(gi == wi, f"{what}: frame {t} ids {gi} != {wi}")
+        for a, b in zip(g, w):
+            for key in ("joints", "maxvals", "score"):
+                if key in a and key in b:
+                    err = float(np.abs(np.asarray(a[key])
+                                       - np.asarray(b[key])).max())
+                    require(err <= joint_tol,
+                            f"{what}: frame {t} {key} differ by {err}")
+        tracks += len(g)
+    return tracks
+
+
+def divergence(got, want) -> dict:
+    """Batched emissions against each stream alone, without a limit: the
+    frames whose ids agree, of all, and the largest joint difference on
+    them."""
+    frames = agree = 0
+    worst = 0.0
+    for sid in got:
+        for g, w in zip(got[sid], want[sid]):
+            frames += 1
+            if [x["track_id"] for x in g] == [x["track_id"] for x in w]:
+                agree += 1
+                worst = max([worst] + [float(np.abs(
+                    np.asarray(a["joints"]) - np.asarray(b["joints"])).max())
+                    for a, b in zip(g, w)])
+    return {"frames": frames, "ids_agree": agree, "max_joint_diff": worst}
+
+
+def library_batch_variance(tracker, exact, frames, rng, card_f) -> None:
+    """How far the nets' outputs move with the batch on the card: the
+    path's flow over C lanes' pairs in one call against one call a lane
+    (``exact``'s chunks), and the pose net's flip-merged heatmaps over C
+    lanes' detection crops and recovery crops against calls of one lane's
+    recovery budget. Logged, not held: the library convs pick their
+    algorithms by shape."""
+    from flowtrack_tpu_torch.tracking.clip_pipeline import _chunked_apply
+
+    c, f = frames.shape[:2]
+    h, w = tracker.img_hw
+    with torch.inference_mode():
+        x = torch.as_tensor(frames, device=tracker.device)
+        flow = (tracker._flows(x) - exact._flows(x)).abs().max().item()
+        pose = {}
+        for n in (c * f * PERSONS, c * f):
+            crops = torch.as_tensor(rng.standard_normal((n, h, w, 3)),
+                                    device=tracker.device
+                                    ).to(tracker.crop_dtype)
+            one = tracker._pose_heatmaps(crops)
+            chunked = _chunked_apply(exact._pose_heatmaps, crops,
+                                     exact.cfg.track.pose_chunk)
+            pose[n] = (one - chunked).abs().max().item()
+    log("serving", check="library batch variance", lanes=c,
+        flow_pairs=c * (f - 1), flow_max_abs_diff=flow,
+        pose_crops_max_abs_diff=pose, card=card_f)
+
+
+def planted_detections(n_frames, h, w, vel, drop):
+    """Three persons in a row, 30% of the frame's width apart, moving at
+    ``vel``: boxes (n_frames, 3, 4) xywh, scores and valid (n_frames, 3);
+    person j is undetected at the frames in drop[j]."""
+    t = np.arange(n_frames)[:, None]
+    x0 = np.array([0.05, 0.35, 0.65]) * w
+    bw = np.array([0.09, 0.1, 0.11]) * w
+    boxes = np.stack(np.broadcast_arrays(x0 + vel[0] * t, 0.15 * h
+                                         + vel[1] * t, bw, 1.8 * bw), -1)
+    scores = np.broadcast_to(np.array([0.9, 0.8, 0.85]), (n_frames, 3))
+    valid = np.ones((n_frames, 3), bool)
+    for j, frames in enumerate(drop):
+        valid[list(frames), j] = False
+    return (boxes.astype(np.float32), scores.astype(np.float32).copy(),
+            valid)
+
+
+def person_ids(what, per_frame, boxes):
+    """The emitted track that carries each person at each frame (the one
+    whose joints' centre lies nearest the person's box centre, within 20
+    px): one track a person and none else, one id a person across the
+    frames, the persons' ids apart."""
+    ids = {}
+    for t, tracks in enumerate(per_frame):
+        centres = np.array([np.asarray(x["joints"]).mean(0) for x in tracks])
+        require(len(tracks) == len(boxes[t]),
+                f"{what}: frame {t}: {len(tracks)} tracks")
+        box_c = boxes[t, :, :2] + boxes[t, :, 2:] / 2
+        dist = np.hypot(*(centres[None] - box_c[:, None]).transpose(2, 0, 1))
+        near = dist.argmin(1)
+        require(len(set(near.tolist())) == len(box_c)
+                and (dist.min(1) < 20).all(),
+                f"{what}: frame {t}: persons' nearest tracks {near}")
+        for j, k in enumerate(near):
+            pid = tracks[k]["track_id"]
+            require(ids.setdefault(j, pid) == pid,
+                    f"{what}: person {j} changed id at frame {t}: "
+                    f"{ids[j]} -> {pid}")
+    require(len(set(ids.values())) == len(ids), f"{what}: ids {ids}")
+    return ids
+
+
+def phase_serving(card, dev=None):
+    """The serving slice on slice 1's config at full width: four streams
+    through MultiStreamTracker at pipeline depths 0 and 1, each equal to
+    track_video_clips on that stream alone (with the nets called at one
+    lane's batch; the path's own run timed and its divergence read), with
+    the crop and correlation launches of one batched step read around it;
+    the planted stubs with a detection dropped at a clip boundary, card
+    against CPU;
+    StreamingClipTracker against track_video_clips at clip length 2, its
+    latency; the per-frame FlowTracker over PosePredictor and
+    FlowPredictor, its ms per frame and its planted ids against the CPU's;
+    track_clips of 4 lanes against 4 track_clip calls in turns; device
+    events per lane-clip at C=1 and C=4. The slice's models run with
+    ``pose_score_thre`` 0: under it every random-weight candidate would
+    drop, and the equalities would compare empty frames. Returns the launch
+    counts of the path's two MultiStreamTracker runs."""
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.pipeline import FlowPredictor, PosePredictor
+    from flowtrack_tpu_torch.serving import StreamingClipTracker
+    from flowtrack_tpu_torch.tracking import FlowTracker
+    from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+    from flowtrack_tpu_torch.utils.video import track_video_clips
+
+    dev = torch.device("cuda") if dev is None else dev
+    cpu = torch.device("cpu")
+    card_f = f"'{card}'"
+    base = slice_config()
+    cfg = replace(base, track=replace(base.track, pose_score_thre=0.0))
+    gen = torch.Generator().manual_seed(SEED)
+    tracker = ClipTracker(cfg, get_pose_net(cfg.model, dev, gen),
+                          get_flow_net(cfg.flow, dev, gen),
+                          max_persons=PERSONS, device=dev)
+    # the same nets with every library call at one lane's batch, batched or
+    # alone: flow in chunks of a clip's pairs, pose in chunks of a lane's
+    # recovery budget (F crops at recover_budget 1), of which a clip's F*P
+    # detections are a multiple. The library convs are not batch-invariant
+    # on the card, and random-weight heatmaps turn their last-bit
+    # differences into other argmax cells; this tracker holds the lanes'
+    # own arithmetic to a stream alone.
+    require(cfg.track.recover_budget == 1.0, "recovery budget F a lane")
+    exact = ClipTracker(replace(cfg, track=replace(
+        cfg.track, flow_chunk=FRAMES - 1, pose_chunk=FRAMES)),
+        tracker.pose_model, tracker.flow_model, max_persons=PERSONS,
+        device=dev)
+    rng = np.random.default_rng(SEED + 5)
+    padded, streams = {}, {}
+    for i in range(SERVE_STREAMS):
+        video = rng.integers(0, 256, (SERVE_FRAMES, FRAME_H, FRAME_W, 3),
+                             np.uint8)
+        det = video_detections(rng, SERVE_FRAMES, PERSONS, FRAME_H, FRAME_W,
+                               (2.0, 1.0), drop=[(FRAMES - 1,), (5, 6)])
+        padded[f"s{i}"] = (video, *det)
+        streams[f"s{i}"] = (video, *ragged(*det))
+    clips = [tuple(x[:FRAMES] for x in padded[sid]) for sid in padded]
+    stacked = [np.stack(x) for x in zip(*clips)]
+    lanes = tracker.prepare_lanes(*stacked)
+    one_lane = tuple(x[:1] for x in lanes)
+    # warm-up: the first calls at the batched and the one-lane shapes
+    tracker.to_host(tracker.run_prepared_lanes(lanes))
+    tracker.to_host(tracker.run_prepared_lanes(one_lane))
+    counters = kernel_counters()
+
+    # one batched step of the four streams: one crop launch per pose pass
+    # and one correlation launch, whatever the lane count
+    for fn in counters.values():
+        fn.launches = 0
+    tracker.to_host(tracker.run_prepared_lanes(lanes))
+    step = {name: fn.launches for name, fn in counters.items()}
+    require(step["crop_resize_normalize"] == 2 and step["correlation"] == 1,
+            f"serving: one batched step of {len(clips)} lanes launched "
+            f"{step}, not 2 crop and 1 correlation launches")
+    log("serving", check="launches of one batched step", lanes=len(clips),
+        launches=step)
+
+    library_batch_variance(tracker, exact, stacked[0], rng, card_f)
+
+    # each stream alone on the card, then the streams batched: equal with
+    # the nets called at one lane's batch; timed, and their divergence
+    # read, as the path runs
+    launches = {}
+    for name, trk in (("exact", exact), ("path", tracker)):
+        want = {sid: track_video_clips(trk, *st, clip_len=FRAMES)
+                for sid, st in streams.items()}
+        for depth in (0, 1):
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            got, lat = serve(trk, streams, depth)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in counters.items()}
+            require(counts["crop_resize_normalize"] and counts["correlation"],
+                    f"serving: a kernel of the path never launched: {counts}")
+            fields = {"frames_per_s": len(streams) * SERVE_FRAMES / seconds,
+                      "latency_ms": lat, "launches": counts}
+            if name == "exact":
+                tracks = sum(same_emissions(
+                    f"serving depth {depth} {sid}", got[sid], want[sid],
+                    SAME_DEVICE_JOINT_TOL) for sid in streams)
+                require(tracks >= len(streams) * SERVE_FRAMES,
+                        f"serving depth {depth}: {tracks} tracks emitted "
+                        f"over {len(streams) * SERVE_FRAMES} frames; the "
+                        f"equality is empty")
+                fields.update(equal_to_alone=True, tracks_compared=tracks)
+            else:
+                launches[depth] = counts
+                fields.update(divergence_from_alone=divergence(got, want))
+            log("serving", nets=name, streams=len(streams),
+                frames=SERVE_FRAMES, clip_len=FRAMES, pipeline_depth=depth,
+                seconds=seconds, **fields, card=card_f)
+
+    # the planted stubs, card against CPU, with a detection dropped at the
+    # boundary frame two clips share
+    pcfg = planted_config()
+    vel = PLANTED_VEL
+    n_planted = 2 * (FRAMES - 1) + 1
+    planted = {}
+    for i, drop in enumerate([[(), (FRAMES - 1,), ()],
+                              [(FRAMES + 3,), (), (FRAMES - 1, FRAMES)]]):
+        video = rng.integers(0, 256, (n_planted, FRAME_H, FRAME_W, 3),
+                             np.uint8)
+        det = planted_detections(n_planted, FRAME_H, FRAME_W, vel, drop)
+        planted[f"p{i}"] = (video, *det)
+    ptrackers = {d.type: ClipTracker(
+        pcfg, PlantedPose(pcfg.model.heatmap_size, d),
+        ConstantFlow(vel, pcfg.flow.div_flow, d), device=d)
+        for d in (dev, cpu)}
+    results = {k: serve(t, {sid: (v, *ragged(b, s, m))
+                            for sid, (v, b, s, m) in planted.items()}, 0)[0]
+               for k, t in ptrackers.items()}
+    ids = {}
+    for sid, (video, boxes, scores, valid) in planted.items():
+        same_emissions(f"planted {sid} card vs cpu", results[dev.type][sid],
+                       results["cpu"][sid], CPU_JOINT_TOL)
+        same_emissions(f"planted {sid} batched vs alone",
+                       results[dev.type][sid],
+                       track_video_clips(ptrackers[dev.type], video,
+                                         *ragged(boxes, scores, valid),
+                                         clip_len=FRAMES),
+                       SAME_DEVICE_JOINT_TOL)
+        ids[sid] = person_ids(f"planted {sid}", results[dev.type][sid],
+                              boxes)
+    log("serving", check="planted stubs", streams=len(planted),
+        frames=n_planted, ids=ids, cpu_equal=True, equal_to_alone=True)
+
+    # StreamingClipTracker: one clip of 2 frames a step (one lane, as
+    # track_video_clips runs it: the same library calls)
+    video, boxes, scores = (x[:STREAM_FRAMES] for x in streams["s0"])
+    st = StreamingClipTracker(tracker)
+    got = [None] * STREAM_FRAMES
+    for t in range(STREAM_FRAMES):
+        if t == 4:             # past the first calls at this shape
+            st.reset_latency_stats()
+        emitted = st.step(video[t], boxes[t], scores[t])
+        require([i for i, _ in emitted] == ([] if t == 0 else [0, 1]
+                                            if t == 1 else [t]),
+                f"streaming: step {t} emitted {[i for i, _ in emitted]}")
+        for i, fr in emitted:
+            got[i] = fr
+    require(st.flush() == [], "streaming: frames left at flush")
+    streamed = same_emissions("streaming", got,
+                              track_video_clips(tracker, video, boxes, scores,
+                                                clip_len=2),
+                              SAME_DEVICE_JOINT_TOL)
+    require(streamed >= STREAM_FRAMES,
+            f"streaming: {streamed} tracks emitted over {STREAM_FRAMES} "
+            f"frames; the equality is empty")
+    lat = st.latency_stats()
+    SUMMARY["streaming_p50_p90_p99_ms"] = (lat["p50_ms"], lat["p90_ms"],
+                                           lat["p99_ms"])
+    log("serving", check="StreamingClipTracker", frames=STREAM_FRAMES,
+        equal_to_track_video_clips=True, tracks_compared=streamed,
+        latency_ms=lat, card=card_f)
+
+    # the per-frame FlowTracker: planted stubs card against CPU, then the
+    # slice's models timed (every candidate kept, so that tracks live on
+    # and the flow net runs each frame)
+    video, boxes, scores, valid = (x[:FLOWTRACKER_FRAMES]
+                                   for x in planted["p1"])
+    dets = [(b[m], s[m]) for b, s, m in zip(boxes, scores, valid)]
+    per_device = {}
+    for d in (dev, cpu):
+        ft = FlowTracker(pcfg, PosePredictor(
+            pcfg, PlantedPose(pcfg.model.heatmap_size, d), device=d),
+            FlowPredictor(pcfg, ConstantFlow(vel, pcfg.flow.div_flow, d),
+                          device=d), device=d)
+        per_device[d.type] = [[{"track_id": x.track_id, "joints": x.joints}
+                               for x in fr]
+                              for fr in ft.track_sequence(video, dets)]
+    same_emissions("FlowTracker card vs cpu", per_device[dev.type],
+                   per_device["cpu"], CPU_JOINT_TOL)
+    ft_ids = sorted({x["track_id"] for fr in per_device[dev.type]
+                     for x in fr})
+    ft = FlowTracker(cfg, PosePredictor(cfg, tracker.pose_model, device=dev),
+                     FlowPredictor(cfg, tracker.flow_model, device=dev),
+                     device=dev)
+    video, boxes, scores = (x[:FLOWTRACKER_FRAMES] for x in streams["s1"])
+    dets = list(zip(boxes, scores))
+    ft.track_sequence(video[:2], dets[:2])
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks = ft.track_sequence(video, dets)
+    torch.cuda.synchronize()
+    ms_per_frame = (time.perf_counter() - t0) * 1e3 / FLOWTRACKER_FRAMES
+    ft_launches = {name: fn.launches for name, fn in counters.items()}
+    require(ft_launches["crop_resize_normalize"] == FLOWTRACKER_FRAMES
+            and ft_launches["correlation"] == FLOWTRACKER_FRAMES - 1,
+            f"FlowTracker: one crop launch a frame and one correlation "
+            f"launch a pair, got {ft_launches}")
+    SUMMARY["flowtracker_ms_per_frame"] = round(ms_per_frame, 2)
+    log("serving", check="FlowTracker", frames=FLOWTRACKER_FRAMES,
+        planted_ids=ft_ids, cpu_equal=True, ms_per_frame=ms_per_frame,
+        live_tracks=[len(t) for t in tracks], launches=ft_launches,
+        card=card_f)
+
+    # track_clips of 4 lanes against 4 track_clip calls, in turns; then
+    # equal with the nets at one lane's batch
+    def batched(trk=tracker):
+        return trk.track_clips(*stacked)
+
+    def separate(trk=tracker):
+        return [trk.track_clip(*c) for c in clips]
+
+    seconds = {"separate": [], "batched": []}
+    outs = {}
+    for name in ("separate", "batched", "batched", "separate"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = (batched if name == "batched" else separate)()
+        seconds[name].append(time.perf_counter() - t0)
+    path_diffs = {key: float(max(np.abs(outs["batched"][key][i] - one[key])
+                                     .max() for i, one in
+                                     enumerate(outs["separate"])))
+                  for key in ("joints", "maxvals", "scores")}
+    outs = {"batched": batched(exact), "separate": separate(exact)}
+    diffs = {"joints": 0.0, "maxvals": 0.0, "scores": 0.0}
+    for i, one in enumerate(outs["separate"]):
+        for key in ("ids", "valid"):
+            require(np.array_equal(outs["batched"][key][i], one[key]),
+                    f"track_clips lane {i}: {key} differ from track_clip")
+        # every slot, valid or not
+        for key in diffs:
+            diffs[key] = max(diffs[key], float(np.abs(
+                outs["batched"][key][i] - one[key]).max()))
+        require(one["valid"].any(), f"track_clips lane {i}: no valid slot")
+    require(max(diffs.values()) <= SAME_DEVICE_JOINT_TOL,
+            f"track_clips against track_clip: max |diff| {diffs} > "
+            f"{SAME_DEVICE_JOINT_TOL}")
+    fps = {k: [len(clips) * FRAMES / x for x in v] for k, v in seconds.items()}
+    SUMMARY["serving_frames_per_s_batched_separate"] = (
+        [round(x, 2) for x in fps["batched"]],
+        [round(x, 2) for x in fps["separate"]])
+    log("serving", check="track_clips vs track_clip in turns",
+        lanes=len(clips), frames_per_clip=FRAMES, order="sep,bat,bat,sep",
+        batched_frames_per_s=fps["batched"],
+        separate_frames_per_s=fps["separate"], ids_valid_equal=True,
+        valid_slots=int(sum(o["valid"].sum() for o in outs["separate"])),
+        max_abs_diff_exact=diffs, max_abs_diff_path=path_diffs, card=card_f)
+
+    # device events per lane-clip, one lane against four
+    per_lane = {}
+    for c, run in ((1, lambda: tracker.to_host(
+            tracker.run_prepared_lanes(one_lane))),
+                   (len(clips), lambda: tracker.to_host(
+                       tracker.run_prepared_lanes(lanes)))):
+        _, wall_ms, device = profile_run(f"serving_c{c}", run)
+        busy_ms = sum(e.device_time_total for e in device) / 1e3
+        per_lane[c] = len(device) / c
+        log("profile", path=f"serving_c{c}", lanes=c, wall_ms=wall_ms,
+            device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+            device_events=len(device), device_events_per_lane_clip=per_lane[c],
+            card=card_f)
+    SUMMARY["serving_events_per_lane_clip_c1_c4"] = (per_lane[1],
+                                                     per_lane[len(clips)])
+    return launches[0]
 
 
 def phase_precision():
@@ -1188,7 +1772,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
-    phase_slice(card)
+    slice_ = phase_slice(card)
     torch.cuda.synchronize()
     # the kernels line reports each kernel's launches on the path that runs
     # it: correlation and resample2d on FlowNet2's, crop and fused_stage on
@@ -1200,10 +1784,15 @@ def main() -> int:
     phase_tracking("flownet_c", (FRAME_H, FRAME_W))
     phase_tracking("flownet2", (FN2_H, FN2_W))
     torch.cuda.synchronize()
+    serving = phase_serving(card)
+    torch.cuda.synchronize()
     phase_precision()
+    by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
+               "serving": serving}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
     log("summary", **SUMMARY)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,6 +28,7 @@ The pre- and post-processing functions keep the reference's NHWC layout.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -319,6 +320,14 @@ class FlowNetFusion(nn.Module):
         return flow0.float()
 
 
+def _div(x, divisor: float):
+    """``x / divisor`` as a true division on every device: by a Python
+    scalar a CUDA tensor is multiplied by the rounded reciprocal, one ulp
+    off the CPU's and the reference's where 1 / divisor is not exact (20,
+    255)."""
+    return x / x.new_full((), divisor)
+
+
 def _upsample4(flow):
     """(N, C, h, w) -> (N, C, 4h, 4w) bilinear with half-pixel centres."""
     h, w = flow.shape[2], flow.shape[3]
@@ -351,7 +360,7 @@ class _Cascade(nn.Module):
         warped = resample2d_nchw(x[:, 3:].to(gdt), flow_full)
         err = channelnorm(x[:, :3].to(gdt) - warped, dim=1).to(gdt)
         return torch.cat([x, warped.to(x.dtype),
-                          (flow_full / self.div_flow).to(x.dtype),
+                          _div(flow_full, self.div_flow).to(x.dtype),
                           err.to(x.dtype)], 1)
 
 
@@ -375,7 +384,7 @@ class FlowNet2(_Cascade):
         flow_s2 = self._up(self.flownets_2(self._stage_input(x, flow_s1))
                            * div)
         # the SD branch's flow is divided by div_flow, as in the reference
-        flow_sd = self._up(self.flownets_d(x) / div)
+        flow_sd = self._up(_div(self.flownets_d(x), div))
         norm_sd = channelnorm(flow_sd, dim=1).to(gdt)
         norm_s2 = channelnorm(flow_s2, dim=1).to(gdt)
         img1, img2 = x[:, :3].to(gdt), x[:, 3:].to(gdt)
@@ -456,8 +465,13 @@ def preprocess_pair(im1, im2, rgb_max: float = 255.0):
     """Two (N, H, W, 3) uint8/float frames -> (N, H, W, 6) network input:
     minus the per-pair per-channel mean over both frames, over rgb_max."""
     pair = torch.stack([im1.float(), im2.float()], dim=1)   # (N, 2, H, W, 3)
-    mean = pair.mean(dim=(1, 2, 3), keepdim=True)
-    pair = (pair - mean) / rgb_max
+    # jnp.mean's form, the float32 sum times the float32 1 / count, with the
+    # sum taken in float64 and rounded once: exact for integer frames in any
+    # order, so the card's run equals the CPU's bit for bit (a float32 sum
+    # of a 384x640 pair is not exact, and its order is the device's)
+    total = pair.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64)
+    mean = total.float() * float(np.float32(1.0 / pair[0, ..., 0].numel()))
+    pair = _div(pair - mean, rgb_max)
     return torch.cat([pair[:, 0], pair[:, 1]], dim=-1)
 
 

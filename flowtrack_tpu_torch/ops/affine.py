@@ -22,7 +22,10 @@ def get_affine_transform_inv(center, scale, output_size):
     center = torch.as_tensor(center, dtype=torch.float32)
     scale = torch.as_tensor(scale, dtype=torch.float32)
     dst_w, dst_h = float(output_size[0]), float(output_size[1])
-    s = scale[..., 0] * PIXEL_STD / dst_w
+    # a true division on every device: by a Python scalar a CUDA tensor is
+    # multiplied by the rounded reciprocal (48 and 72 have no exact one)
+    src_w = scale[..., 0] * PIXEL_STD
+    s = src_w / src_w.new_full((), dst_w)
     zero = torch.zeros_like(s)
     tx = center[..., 0] - s * dst_w * 0.5
     ty = center[..., 1] - s * dst_h * 0.5

@@ -123,9 +123,10 @@ def channelnorm(x, eps: float = 0.0, dim: int = -1):
 
 
 def _bilinear_sample_points(img, sx, sy):
-    """img (H, W, C) sampled at points (sx, sy) (...,): coordinates clamped
-    to the image, four-point bilinear -> (..., C)."""
-    h, w = img.shape[0], img.shape[1]
+    """img (*B, H, W, C) sampled at points (sx, sy) (*B, *S): coordinates
+    clamped to the image, four-point bilinear -> (*B, *S, C)."""
+    h, w, c = img.shape[-3:]
+    batch = img.shape[:-3]
     sx = sx.clamp(0.0, w - 1.0)
     sy = sy.clamp(0.0, h - 1.0)
     x0 = torch.floor(sx)
@@ -136,11 +137,19 @@ def _bilinear_sample_points(img, sx, sy):
     y0i = y0.long()
     x1i = (x0i + 1).clamp(max=w - 1)
     y1i = (y0i + 1).clamp(max=h - 1)
-    top = img[y0i, x0i] * (1.0 - wx) + img[y0i, x1i] * wx
-    bot = img[y1i, x0i] * (1.0 - wx) + img[y1i, x1i] * wx
+    flat = img.reshape(*batch, h * w, c)
+
+    def tap(yi, xi):
+        idx = (yi * w + xi).reshape(*batch, -1, 1).expand(*batch, -1, c)
+        return flat.gather(-2, idx).reshape(*yi.shape, c)
+
+    top = tap(y0i, x0i) * (1.0 - wx) + tap(y0i, x1i) * wx
+    bot = tap(y1i, x0i) * (1.0 - wx) + tap(y1i, x1i) * wx
     return top * (1.0 - wy) + bot * wy
 
 
 def flow_gather(flow, pts_xy):
-    """flow (H, W, 2) sampled at points (..., 2) -> (..., 2) flow vectors."""
+    """flow (*B, H, W, 2) sampled at points (*B, *S, 2) -> (*B, *S, 2) flow
+    vectors; each leading index of ``flow`` (a clip lane) serves the points
+    of the same leading index."""
     return _bilinear_sample_points(flow, pts_xy[..., 0], pts_xy[..., 1])

@@ -1,10 +1,12 @@
-"""Whole-clip tracking pipeline on the GPU.
+"""Whole-clip tracking pipeline on the GPU, one clip or a batch of clip
+lanes.
 
 Port of ``flowtrack_tpu/tracking/clip_pipeline.py``: ``_box_xyxy_to_center_
 scale`` (:106), ``_chunked_apply`` (:121), ``_assign_ids`` (:138),
-``ClipTracker`` (:152) and ``pad_detections`` (:613). The reference's module
-docstring describes the algorithm; in short, per clip of F frames with P
-detector slots:
+``ClipTracker`` (:152) with ``track_clips`` (:540) and the vmapped clip
+program ``_clips_fn`` (:445), and ``pad_detections`` (:613). The
+reference's module docstring describes the algorithm; in short, per clip of
+F frames with P detector slots:
 
   1. FlowNet on all F-1 frame pairs in one batched call;
   2. one crop launch (kernel K1) for all F*P detections, pose with the
@@ -18,6 +20,13 @@ detector slots:
   4. the greedy-OKS id scan over the P + R candidate slots, seeded with the
      previous clip's final track state (the clips overlap by one frame).
 
+Every clip runs with a leading lane axis C: independent clips (streams) of
+one shape share each call. Flow takes the C*(F-1) in-lane pairs in one
+call, K1 makes all C*F*P crops of a pose pass in one launch, and the two
+per-frame scans carry the C lanes in each step, so their launches per
+lane-frame fall by C. The recovery budget and its top-k are per lane; no
+pair, match or id crosses lanes. One clip is the case C = 1.
+
 The batched calls run as PyTorch ops on one stream; the per-frame scans of
 stages 3 and 4 are a Python loop of small tensor ops that never syncs with
 the host (no ``.item()``, no branch on a device value), so the host only
@@ -26,20 +35,19 @@ queues work until ``to_host`` copies the result back. Each stage runs in a
 profile attributes the clip's time to its stages.
 
 Differences from the reference: it runs eagerly, not as one compiled
-program; ``real_frames`` is a plain int; the batched multi-stream
-``track_clips`` and ``frame_sharding`` are not ported yet.
+program; ``real_frames`` is a plain int, shared by every lane;
+``frame_sharding`` and ``track_clips``' ``sharding`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from flowtrack_tpu_torch.config import (
-    COCO_FLIP_PAIRS,
     IMAGENET_MEAN,
     IMAGENET_STD,
     PIXEL_STD,
@@ -53,10 +61,13 @@ from flowtrack_tpu_torch.models.flownet import (
 from flowtrack_tpu_torch.models.layers import torch_dtype
 from flowtrack_tpu_torch.ops.crop import crop_frames
 from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
-from flowtrack_tpu_torch.ops.heatmap import merge_flip_test
 from flowtrack_tpu_torch.ops.nms import iou_matrix
 from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
-from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+from flowtrack_tpu_torch.pipeline import (
+    batched_box_to_center_scale,
+    flip_test_heatmaps,
+    model_device,
+)
 from flowtrack_tpu_torch.tracking.tracker import (
     boxes_from_poses,
     greedy_match,
@@ -66,14 +77,19 @@ from flowtrack_tpu_torch.tracking.tracker import (
 
 def _box_xyxy_to_center_scale(boxes, aspect_ratio: float,
                               scale_padding: float = 1.25):
-    """Tensor twin of pipeline.batched_box_to_center_scale for xyxy boxes."""
-    w = (boxes[:, 2] - boxes[:, 0]).clamp(min=1e-3)
-    h = (boxes[:, 3] - boxes[:, 1]).clamp(min=1e-3)
-    centers = torch.stack([boxes[:, 0] + w * 0.5, boxes[:, 1] + h * 0.5], 1)
+    """Tensor twin of pipeline.batched_box_to_center_scale for xyxy boxes
+    (..., 4) -> centers, scales (..., 2). The divisions are by tensors on
+    the boxes' device: by a Python scalar a CUDA tensor is multiplied by
+    the rounded reciprocal (0.75 and 200 have no exact one)."""
+    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=1e-3)
+    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=1e-3)
+    centers = torch.stack([boxes[..., 0] + w * 0.5, boxes[..., 1] + h * 0.5],
+                          -1)
     wide = w > aspect_ratio * h
-    h = torch.where(wide, w / aspect_ratio, h)
+    h = torch.where(wide, w / w.new_full((), aspect_ratio), h)
     w = torch.where(~wide & (w < aspect_ratio * h), h * aspect_ratio, w)
-    scales = torch.stack([w, h], dim=1) / PIXEL_STD * scale_padding
+    scales = torch.stack([w, h], dim=-1)
+    scales = scales / scales.new_full((), PIXEL_STD) * scale_padding
     return centers, scales
 
 
@@ -87,24 +103,30 @@ def _chunked_apply(fn, x, chunk: int):
 
 
 def _assign_ids(assign, cand_valid, track_ids, next_id):
-    """assign (P,) row or -1 -> (ids (P,) int32, next id): matched
-    candidates inherit the track's id, valid unmatched ones get fresh
-    consecutive ids from ``next_id``, the rest -1."""
+    """assign (C, P) row or -1 -> (ids (C, P) int32, next ids (C,)):
+    matched candidates inherit the track's id, valid unmatched ones get
+    fresh consecutive ids from their lane's ``next_id``, the rest -1."""
     matched = assign >= 0
-    inherited = track_ids[assign.clamp(min=0).long()]
+    inherited = track_ids.gather(-1, assign.clamp(min=0).long())
     new_mask = ~matched & cand_valid
-    ranks = torch.cumsum(new_mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    ranks = torch.cumsum(new_mask.to(torch.int32), -1, dtype=torch.int32) - 1
     ids = torch.where(matched, inherited,
-                      torch.where(new_mask, next_id + ranks,
+                      torch.where(new_mask, next_id[..., None] + ranks,
                                   torch.full_like(ranks, -1)))
-    return ids, next_id + new_mask.sum(dtype=torch.int32)
+    return ids, next_id + new_mask.sum(-1, dtype=torch.int32)
 
 
 def _top_k(x, k: int):
-    """Top ``k`` of a 1-D tensor, ties to the lower index (jax.lax.top_k's
-    order, which torch.topk does not promise)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """Top ``k`` along the last axis, ties to the lower index
+    (jax.lax.top_k's order, which torch.topk does not promise)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _take(x, idx):
+    """x (C, N, ...) at idx (C, G) along axis 1 -> (C, G, ...)."""
+    idx = idx.reshape(*idx.shape, *(1,) * (x.dim() - 2))
+    return x.gather(1, idx.expand(*idx.shape[:2], *x.shape[2:]))
 
 
 class ClipTracker:
@@ -119,10 +141,7 @@ class ClipTracker:
 
     def __init__(self, cfg: Config, pose_model, flow_model,
                  max_persons: Optional[int] = None, device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ClipTracker on 'cuda' needs a CUDA device; "
-                               "pass device='cpu' to run the plain versions")
+        device = model_device(device)
         self.cfg = cfg
         self.device = device
         self.max_persons = max_persons or cfg.track.max_persons
@@ -140,13 +159,9 @@ class ClipTracker:
     # ---- stage 2 building blocks
     def _pose_heatmaps(self, crops):
         """(M, h, w, 3) crops -> flip-merged heatmaps (M, h/4, w/4, K)."""
-        x = crops.permute(0, 3, 1, 2)
-        m = x.shape[0]
-        if self.cfg.test.flip_test:
-            hm = self.pose_model(torch.cat([x, x.flip(3)])).permute(0, 2, 3, 1)
-            return merge_flip_test(hm[:m], hm[m:], COCO_FLIP_PAIRS,
-                                   shift=self.cfg.test.shift_heatmap)
-        return self.pose_model(x).permute(0, 2, 3, 1)
+        return flip_test_heatmaps(self.pose_model, crops,
+                                  self.cfg.test.flip_test,
+                                  self.cfg.test.shift_heatmap)
 
     def _pose_on_crops(self, crops, centers, scales, det_scores):
         """crops (N, h, w, 3) -> preds (N, K, 2), maxvals (N, K), scores (N,)."""
@@ -166,60 +181,65 @@ class ClipTracker:
     # ---- stage 3: detector-miss recovery
     def _recovery_pass(self, frames, preds, valid, scores, det_boxes, flows,
                        frame_valid, real_frames, seed):
-        """Emit flow-propagated boxes for OKS-unmatched tracks, pose the
-        clip-wide top-budget boxes in one batch, scatter them back to the
-        (F, R) recovery slots. ``seed`` = (joints, valid, scores, ages) over
-        the P + R slots at frame 0; frame 0's step propagates by identity
-        and does not age the seed (the previous clip counted that frame)."""
+        """Emit flow-propagated boxes for OKS-unmatched tracks, pose each
+        lane's clip-wide top-budget boxes (one crop launch and one pose
+        batch for all lanes), scatter them back to the (C, F, R) recovery
+        slots. ``frames`` is (C*F, H, W, 3); ``seed`` = (joints, valid,
+        scores, ages) over the P + R slots at frame 0; frame 0's step
+        propagates by identity and does not age the seed (the previous clip
+        counted that frame)."""
         tcfg = self.cfg.track
         dev = preds.device
-        f, p = valid.shape
+        c, f, p = valid.shape
         r = tcfg.max_recovered
         t_slots = p + r
         budget = min(f * r, max(r, int(np.ceil(f * tcfg.recover_budget))))
         neg = float("-inf")
         slot_ids = torch.arange(t_slots, device=dev)
-        zero_ages = torch.zeros(p, dtype=torch.int32, device=dev)
+        zero_ages = torch.zeros((c, p), dtype=torch.int32, device=dev)
         thr = tcfg.track_oks_thre
 
         def gen_core(carry, dj, dv, ds, dbox, prop, fv_t, inc_t):
             _, tv, ts, ta = carry
             sim = oks_matrix(prop, pose_area(prop), dj, pose_area(dj))
             assign = greedy_match(sim, thr, tv, dv)
-            row_matched = ((assign[None, :] == slot_ids[:, None])
-                           & (assign >= 0)[None, :]).any(1)
+            row_matched = ((assign[:, None, :] == slot_ids[:, None])
+                           & (assign >= 0)[:, None, :]).any(-1)
             miss = tv & ~row_matched & (ta < tcfg.max_miss_age)
             top_s, top_i = _top_k(torch.where(miss, ts, neg), r)
-            rec_v = torch.isfinite(top_s) & fv_t
-            rec_j = prop[top_i]
-            rec_s = ts[top_i]
-            rec_a = ta[top_i] + inc_t
+            rec_v = torch.isfinite(top_s) & fv_t[:, None]
+            rec_j = _take(prop, top_i)
+            rec_s = ts.gather(1, top_i)
+            rec_a = ta.gather(1, top_i) + inc_t
             rec_box = boxes_from_poses(rec_j, tcfg.box_expand)
             if tcfg.box_nms_thre < 1.0:
                 iou = iou_matrix(rec_box, dbox)
                 rec_v = rec_v & ~((iou > tcfg.box_nms_thre)
-                                  & dv[None, :]).any(1)
-            carry = (torch.cat([dj, rec_j]), torch.cat([dv, rec_v]),
-                     torch.cat([ds, rec_s]), torch.cat([zero_ages, rec_a]))
+                                  & dv[:, None, :]).any(-1)
+            carry = (torch.cat([dj, rec_j], 1), torch.cat([dv, rec_v], 1),
+                     torch.cat([ds, rec_s], 1), torch.cat([zero_ages, rec_a], 1))
             return carry, (rec_box, rec_v, rec_s, rec_a)
 
         with record_function("clip.recovery_scan"):
-            carry, out0 = gen_core(seed, preds[0], valid[0], scores[0],
-                                   det_boxes[0], seed[0], frame_valid[0], 0)
+            carry, out0 = gen_core(seed, preds[:, 0], valid[:, 0],
+                                   scores[:, 0], det_boxes[:, 0], seed[0],
+                                   frame_valid[:, 0], 0)
             outs = [out0]
             for t in range(1, f):
-                prop = propagate_poses(carry[0], flows[t - 1])
-                carry, out_t = gen_core(carry, preds[t], valid[t], scores[t],
-                                        det_boxes[t], prop, frame_valid[t], 1)
+                prop = propagate_poses(carry[0], flows[:, t - 1])
+                carry, out_t = gen_core(carry, preds[:, t], valid[:, t],
+                                        scores[:, t], det_boxes[:, t], prop,
+                                        frame_valid[:, t], 1)
                 outs.append(out_t)
-            rec_box, rec_v, rec_s, rec_ages = (torch.stack(x)
+            rec_box, rec_v, rec_s, rec_ages = (torch.stack(x, 1)
                                                for x in zip(*outs))
 
-        # clip-wide budgeted selection -> one crop launch, one pose batch
+        # each lane's clip-wide budgeted selection -> one crop launch, one
+        # pose batch for all lanes
         with record_function("clip.recovery_pose"):
-            k = preds.shape[2]
-            flat_s = torch.where(rec_v.reshape(-1),
-                                 rec_s.reshape(-1).float(), neg)
+            k = preds.shape[3]
+            flat_s = torch.where(rec_v.reshape(c, -1),
+                                 rec_s.reshape(c, -1).float(), neg)
             g_s, g_idx = _top_k(flat_s, budget)
             sel_valid = torch.isfinite(g_s)
             if real_frames is not None:
@@ -230,116 +250,132 @@ class ClipTracker:
                     * np.float32(tcfg.recover_budget)))))
                 sel_valid = sel_valid & (torch.arange(budget, device=dev)
                                          < eff)
-            sel_box = rec_box.reshape(-1, 4)[g_idx]
-            sel_score = rec_s.reshape(-1)[g_idx]
+            sel_box = _take(rec_box.reshape(c, f * r, 4), g_idx)
+            sel_score = rec_s.reshape(c, -1).gather(1, g_idx)
             sel_c, sel_sc = _box_xyxy_to_center_scale(sel_box,
                                                       self.aspect_ratio)
-            crops = self._crop(frames, g_idx // r, sel_c, sel_sc)
+            lane0 = torch.arange(c, device=dev)[:, None] * f
+            crops = self._crop(frames, (lane0 + g_idx // r).reshape(-1),
+                               sel_c.reshape(-1, 2), sel_sc.reshape(-1, 2))
             preds2, maxvals2, scores2 = self._pose_on_crops(
-                crops, sel_c, sel_sc, sel_score)
+                crops, sel_c.reshape(-1, 2), sel_sc.reshape(-1, 2),
+                sel_score.reshape(-1))
+            preds2 = preds2.reshape(c, budget, k, 2)
+            maxvals2 = maxvals2.reshape(c, budget, k)
+            scores2 = scores2.reshape(c, budget)
             valid2 = sel_valid & (scores2 >= tcfg.pose_score_thre)
 
         # invalid selections write zeros, so padded and unpadded runs give
         # identical arrays, not only identical valid masks
-        def scatter(values, shape, dtype):
-            out = torch.zeros(shape, dtype=dtype, device=dev)
-            out[g_idx] = values
-            return out
+        def scatter(values, dtype):
+            out = torch.zeros((c, f * r, *values.shape[2:]), dtype=dtype,
+                              device=dev)
+            idx = g_idx.reshape(*g_idx.shape, *(1,) * (values.dim() - 2))
+            return out.scatter(1, idx.expand(values.shape), values.to(dtype))
 
         sv = sel_valid
-        rec_preds = scatter(torch.where(sv[:, None, None], preds2, 0.0),
-                            (f * r, k, 2), torch.float32)
-        rec_maxvals = scatter(torch.where(sv[:, None], maxvals2, 0.0),
-                              (f * r, k), torch.float32)
-        rec_scores = scatter(torch.where(sv, scores2, 0.0), (f * r,),
-                             torch.float32)
-        rec_valid = scatter(valid2, (f * r,), torch.bool)
-        return (rec_preds.reshape(f, r, k, 2), rec_maxvals.reshape(f, r, k),
-                rec_scores.reshape(f, r), rec_valid.reshape(f, r), rec_ages)
+        rec_preds = scatter(torch.where(sv[..., None, None], preds2, 0.0),
+                            torch.float32)
+        rec_maxvals = scatter(torch.where(sv[..., None], maxvals2, 0.0),
+                              torch.float32)
+        rec_scores = scatter(torch.where(sv, scores2, 0.0), torch.float32)
+        rec_valid = scatter(valid2, torch.bool)
+        return (rec_preds.reshape(c, f, r, k, 2),
+                rec_maxvals.reshape(c, f, r, k), rec_scores.reshape(c, f, r),
+                rec_valid.reshape(c, f, r), rec_ages)
 
     # ---- the clip program
     def _flows(self, frames):
-        """Stage 1: (F, H, W, 3) frames -> (F-1, H, W, 2) flow of each pair.
-        FlowNet needs /64 sizes, so the flow branch resizes the frames up to
-        the net size, and postprocess_flow brings the flow back to (H, W)
-        with its components rescaled: a quarter-resolution output is taken
-        times div_flow at 4x its size first, a full-resolution one (the
-        FlowNet2 cascades) as it is, shrunk by the antialiased resize."""
+        """Stage 1: (C, F, H, W, 3) frames -> (C, F-1, H, W, 2) flow of each
+        lane's pairs, all in one batch. FlowNet needs /64 sizes, so the flow
+        branch resizes the frames up to the net size, and postprocess_flow
+        brings the flow back to (H, W) with its components rescaled: a
+        quarter-resolution output is taken times div_flow at 4x its size
+        first, a full-resolution one (the FlowNet2 cascades) as it is,
+        shrunk by the antialiased resize."""
         cfg = self.cfg
-        h, w = frames.shape[1], frames.shape[2]
+        c, f, h, w = frames.shape[:4]
         net_hw = (-(-h // 64) * 64, -(-w // 64) * 64)
-        flow_in = (frames if net_hw == (h, w)
-                   else resize_bilinear(frames.float(), net_hw))
-        pairs = preprocess_pair(flow_in[:-1], flow_in[1:], cfg.flow.rgb_max)
+        flat = frames.reshape(c * f, h, w, 3)
+        flow_in = (flat if net_hw == (h, w)
+                   else resize_bilinear(flat.float(), net_hw))
+        flow_in = flow_in.reshape(c, f, *net_hw, 3)
+        pairs = preprocess_pair(flow_in[:, :-1].reshape(-1, *net_hw, 3),
+                                flow_in[:, 1:].reshape(-1, *net_hw, 3),
+                                cfg.flow.rgb_max)
         flow_q = _chunked_apply(
             lambda x: self.flow_model(x.permute(0, 3, 1, 2)),
             pairs, cfg.track.flow_chunk).permute(0, 2, 3, 1)
-        return postprocess_flow(flow_q, cfg.flow.variant, (h, w),
-                                cfg.flow.div_flow)
+        flows = postprocess_flow(flow_q, cfg.flow.variant, (h, w),
+                                 cfg.flow.div_flow)
+        return flows.reshape(c, f - 1, h, w, 2)
 
     def _clip(self, frames, centers, scales, det_scores, det_valid,
               det_boxes, frame_valid, seed_joints, seed_valid, seed_scores,
               seed_ages, seed_ids, next_id0, real_frames=None):
-        cfg, tcfg = self.cfg, self.cfg.track
-        f, h, w, _ = frames.shape
-        p = centers.shape[1]
+        """Every argument carries the leading lane axis C."""
+        tcfg = self.cfg.track
+        c, f, h, w, _ = frames.shape
+        p = centers.shape[2]
         dev = frames.device
 
-        # 1. flow on all pairs, one call
+        # 1. flow on all pairs of all lanes, one call
         with record_function("clip.flow"):
             flows = self._flows(frames) if f > 1 else torch.zeros(
-                (0, h, w, 2), device=dev)
+                (c, 0, h, w, 2), device=dev)
 
         # 2. pose on all detector persons of all frames: one crop launch
+        frames = frames.reshape(c * f, h, w, 3)
         with record_function("clip.pose"):
-            frame_idx = torch.arange(f, device=dev).repeat_interleave(p)
-            centers_flat = centers.reshape(f * p, 2)
-            scales_flat = scales.reshape(f * p, 2)
+            frame_idx = torch.arange(c * f, device=dev).repeat_interleave(p)
+            centers_flat = centers.reshape(-1, 2)
+            scales_flat = scales.reshape(-1, 2)
             crops = self._crop(frames, frame_idx, centers_flat, scales_flat)
             preds, maxvals, scores = self._pose_on_crops(
-                crops, centers_flat, scales_flat, det_scores.reshape(f * p))
-        preds = preds.reshape(f, p, -1, 2)
-        maxvals = maxvals.reshape(f, p, -1)
-        scores = scores.reshape(f, p)
+                crops, centers_flat, scales_flat, det_scores.reshape(-1))
+        preds = preds.reshape(c, f, p, -1, 2)
+        maxvals = maxvals.reshape(c, f, p, -1)
+        scores = scores.reshape(c, f, p)
         valid = det_valid & (scores >= tcfg.pose_score_thre)
 
         # 3. detector-miss recovery (second, budgeted pose pass)
-        ages = torch.zeros((f, p), dtype=torch.int32, device=dev)
+        ages = torch.zeros((c, f, p), dtype=torch.int32, device=dev)
         if self.recover:
             rec_seed = (seed_joints, seed_valid, seed_scores.float(),
                         seed_ages.to(torch.int32))
             rec_preds, rec_maxvals, rec_scores, rec_valid, rec_ages = \
                 self._recovery_pass(frames, preds, valid, scores, det_boxes,
                                     flows, frame_valid, real_frames, rec_seed)
-            preds = torch.cat([preds, rec_preds], dim=1)
-            maxvals = torch.cat([maxvals, rec_maxvals], dim=1)
-            scores = torch.cat([scores, rec_scores], dim=1)
-            valid = torch.cat([valid, rec_valid], dim=1)
-            ages = torch.cat([ages, rec_ages], dim=1)
+            preds = torch.cat([preds, rec_preds], dim=2)
+            maxvals = torch.cat([maxvals, rec_maxvals], dim=2)
+            scores = torch.cat([scores, rec_scores], dim=2)
+            valid = torch.cat([valid, rec_valid], dim=2)
+            ages = torch.cat([ages, rec_ages], dim=2)
 
         # 4. the id chain; frame 0 matches the seed by identity propagation
         thr = tcfg.track_oks_thre
         with record_function("clip.id_scan"):
-            sim0 = oks_matrix(seed_joints, pose_area(seed_joints), preds[0],
-                              pose_area(preds[0]))
-            assign0 = greedy_match(sim0, thr, seed_valid, valid[0])
-            ids, nid = _assign_ids(assign0, valid[0],
+            sim0 = oks_matrix(seed_joints, pose_area(seed_joints),
+                              preds[:, 0], pose_area(preds[:, 0]))
+            assign0 = greedy_match(sim0, thr, seed_valid, valid[:, 0])
+            ids, nid = _assign_ids(assign0, valid[:, 0],
                                    seed_ids.to(torch.int32).clamp(min=0),
                                    next_id0.to(torch.int32))
             all_ids = [ids]
             for t in range(1, f):
-                prop = propagate_poses(preds[t - 1], flows[t - 1])
-                sim = oks_matrix(prop, pose_area(prop), preds[t],
-                                 pose_area(preds[t]))
-                assign = greedy_match(sim, thr, valid[t - 1], valid[t])
-                ids, nid = _assign_ids(assign, valid[t], ids.clamp(min=0),
+                prop = propagate_poses(preds[:, t - 1], flows[:, t - 1])
+                sim = oks_matrix(prop, pose_area(prop), preds[:, t],
+                                 pose_area(preds[:, t]))
+                assign = greedy_match(sim, thr, valid[:, t - 1], valid[:, t])
+                ids, nid = _assign_ids(assign, valid[:, t], ids.clamp(min=0),
                                        nid)
                 all_ids.append(ids)
-            all_ids = torch.stack(all_ids)
+            all_ids = torch.stack(all_ids, 1)
         # the next clip's seed: the last REAL frame's live tracks
         last = (real_frames if real_frames is not None else f) - 1
-        seed_out = (preds[last], valid[last], scores[last], ages[last],
-                    torch.where(valid[last], all_ids[last], 0), nid)
+        seed_out = (preds[:, last], valid[:, last], scores[:, last],
+                    ages[:, last],
+                    torch.where(valid[:, last], all_ids[:, last], 0), nid)
         return preds, maxvals, scores, all_ids, valid, seed_out
 
     def empty_seed(self):
@@ -353,30 +389,34 @@ class ClipTracker:
                 torch.zeros((t,), dtype=torch.int32, device=dev),
                 torch.zeros((), dtype=torch.int32, device=dev))
 
-    def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
-                det_scores: np.ndarray, det_valid: np.ndarray,
-                frame_valid: Optional[np.ndarray] = None,
-                frame_offset: int = 0):
-        """Host prep and copy to the device: the argument tuple of
-        run_prepared. ``frame_offset`` is the clip's first global frame
-        index, so keyframe masking follows the video's cadence."""
-        f, p = det_scores.shape
+    def prepare_lanes(self, frames: np.ndarray, det_boxes: np.ndarray,
+                      det_scores: np.ndarray, det_valid: np.ndarray,
+                      frame_valid: Optional[np.ndarray] = None,
+                      frame_offsets: Optional[Sequence[int]] = None):
+        """Host prep of C clips of one shape and one copy to the device per
+        tensor: frames (C, F, H, W, 3), det_boxes (C, F, P, 4) xywh,
+        det_scores and det_valid (C, F, P), frame_valid (C, F) -> the
+        argument tuple of run_prepared_lanes, each tensor with a leading C.
+        ``frame_offsets[i]`` is lane i's first global frame index, so
+        keyframe masking follows each video's cadence."""
+        c, f, p = det_scores.shape
         if frame_valid is None:
-            frame_valid = np.ones((f,), bool)
+            frame_valid = np.ones((c, f), bool)
         k = max(1, self.cfg.track.keyframe_interval)
         if k > 1:
+            offsets = np.asarray(frame_offsets if frame_offsets is not None
+                                 else [0] * c)
             det_valid = det_valid & (
-                (np.arange(f) + frame_offset)[:, None] % k == 0)
-        centers = np.zeros((f, p, 2), np.float32)
-        scales = np.full((f, p, 2), 1e-3, np.float32)
-        boxes_xyxy = np.zeros((f, p, 4), np.float32)
-        for t in range(f):
+                (np.arange(f) + offsets[:, None])[..., None] % k == 0)
+        centers = np.zeros((c * f, p, 2), np.float32)
+        scales = np.full((c * f, p, 2), 1e-3, np.float32)
+        boxes_xyxy = np.zeros((c * f, p, 4), np.float32)
+        for t, boxes in enumerate(np.reshape(det_boxes, (c * f, p, 4))):
             # clamp only w/h: padded zero boxes would give zero scale
             boxes_t = np.concatenate(
-                [det_boxes[t][:, :2], np.maximum(det_boxes[t][:, 2:], 1e-3)],
-                axis=1)
-            c, s = batched_box_to_center_scale(boxes_t, self.aspect_ratio)
-            centers[t], scales[t] = c, s
+                [boxes[:, :2], np.maximum(boxes[:, 2:], 1e-3)], axis=1)
+            centers[t], scales[t] = batched_box_to_center_scale(
+                boxes_t, self.aspect_ratio)
             boxes_xyxy[t] = np.concatenate(
                 [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
         dev = self.device
@@ -385,24 +425,53 @@ class ClipTracker:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=dev)
 
-        return (put(frames), put(centers), put(scales),
-                put(det_scores, torch.float32), put(det_valid, torch.bool),
-                put(boxes_xyxy), put(frame_valid, torch.bool))
+        return (put(frames), put(centers.reshape(c, f, p, 2)),
+                put(scales.reshape(c, f, p, 2)), put(det_scores, torch.float32),
+                put(det_valid, torch.bool), put(boxes_xyxy.reshape(c, f, p, 4)),
+                put(frame_valid, torch.bool))
+
+    def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
+                det_scores: np.ndarray, det_valid: np.ndarray,
+                frame_valid: Optional[np.ndarray] = None,
+                frame_offset: int = 0):
+        """``prepare_lanes`` of one clip (frames (F, H, W, 3), det_boxes
+        (F, P, 4), ...), without the lane axis: the argument tuple of
+        run_prepared."""
+        lanes = self.prepare_lanes(
+            np.asarray(frames)[None], np.asarray(det_boxes)[None],
+            np.asarray(det_scores)[None], np.asarray(det_valid)[None],
+            None if frame_valid is None else np.asarray(frame_valid)[None],
+            [frame_offset])
+        return tuple(x[0] for x in lanes)
 
     @torch.inference_mode()
+    def run_prepared_lanes(self, device_args, seeds: Optional[Sequence] = None,
+                           budget_frames: Optional[int] = None):
+        """Track C prepared clips of one shape (``prepare_lanes``' tuple) in
+        one batched run, lane i seeded by ``seeds[i]`` (None: the empty
+        seed; ``seeds`` None: every lane empty). ``budget_frames``: the real
+        frame count of clips padded with invalid frames, for every lane.
+        Returns device tensors (preds, maxvals, scores, ids, valid,
+        seed_out), each with a leading C; ``tuple(leaf[i] for leaf in
+        seed_out)`` seeds lane i's next (one-frame-overlapping) clip."""
+        empty = self.empty_seed()
+        seeds = [empty if s is None else s
+                 for s in (seeds or [None] * device_args[0].shape[0])]
+        seed = [torch.stack(leaves) for leaves in zip(*seeds)]
+        return self._clip(*device_args, *seed, real_frames=budget_frames)
+
     def run_prepared(self, device_args, budget_frames: Optional[int] = None,
                      seed=None):
-        """Track a prepared clip; returns device tensors (preds, maxvals,
-        scores, ids, valid, seed_out), where seed_out seeds the next
-        (one-frame-overlapping) clip. ``budget_frames``: the real frame
-        count of a clip padded with invalid frames."""
-        if seed is None:
-            seed = self.empty_seed()
-        return self._clip(*device_args, *seed, real_frames=budget_frames)
+        """Track a prepared clip (``prepare``'s tuple): ``run_prepared_lanes``
+        with one lane, without the lane axis in its result."""
+        out = self.run_prepared_lanes([x[None] for x in device_args], [seed],
+                                      budget_frames)
+        return (*(x[0] for x in out[:5]), tuple(s[0] for s in out[5]))
 
     @staticmethod
     def to_host(device_out):
-        """Device result -> dict of numpy arrays (ids -1 where invalid)."""
+        """Device result -> dict of numpy arrays (ids -1 where invalid), one
+        copy to the host per output tensor; any leading lane axis stays."""
         preds, maxvals, scores, ids, valid, _seed = device_out
         valid = valid.cpu().numpy()
         return {"joints": preds.cpu().numpy(),
@@ -410,6 +479,15 @@ class ClipTracker:
                 "scores": scores.cpu().numpy(),
                 "ids": np.where(valid, ids.cpu().numpy(), -1),
                 "valid": valid}
+
+    def track_clips(self, frames: np.ndarray, det_boxes: np.ndarray,
+                    det_scores: np.ndarray, det_valid: np.ndarray):
+        """Independent clips in one batched run: frames (C, F, H, W, 3),
+        det_boxes (C, F, P, 4) xywh, det_scores and det_valid (C, F, P);
+        every lane starts from the empty seed. Returns the track_clip dict
+        with a leading C."""
+        return self.to_host(self.run_prepared_lanes(self.prepare_lanes(
+            frames, det_boxes, det_scores, det_valid)))
 
     def track_clip(self, frames: np.ndarray, det_boxes: np.ndarray,
                    det_scores: np.ndarray, det_valid: np.ndarray, seed=None,

@@ -130,3 +130,71 @@ def test_padded_clip_matches_reference(trackers):
         np.testing.assert_array_equal(got[key][:4], unpadded[key], err_msg=key)
     for a, b in zip(got_dev[5], unpadded_dev[5]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _lanes(*clips):
+    return [np.stack(x) for x in zip(*clips)]
+
+
+def test_track_clips_matches_separate_clips_and_reference(trackers):
+    """Three 4-frame clips of one shape (one with a dropped detection) in
+    one batched run: each lane equals its own track_clip, and the whole
+    equals the reference's vmapped track_clips, with a leading C of 3."""
+    ref, port = trackers
+    clips = [_clip(0, 4), _clip(2, 4, drop_at=3, seed=3), _clip(5, 4, seed=4)]
+    got = port.track_clips(*_lanes(*clips))
+    want = ref.track_clips(*_lanes(*clips))
+    assert got["ids"].shape == (3, 4, P + 2)
+    _assert_outputs_match(got, want)
+    for i, clip in enumerate(clips):
+        _assert_outputs_match({k: v[i] for k, v in got.items()},
+                              port.track_clip(*clip))
+
+
+def test_seeded_lanes_match_chained_clips(trackers):
+    """prepare_lanes and run_prepared_lanes with a seed per lane, as
+    MultiStreamTracker dispatches a batch: lane i's second clip, seeded by
+    lane i's first,
+    equals the chained track_clip of that stream alone, and the lanes'
+    output seeds equal the chained runs' seeds."""
+    _, port = trackers
+    streams = [(_clip(0, 4), _clip(3, 4, drop_at=4, seed=1)),
+               (_clip(1, 4, seed=5), _clip(4, 4, drop_at=5, seed=6))]
+    first = port.run_prepared_lanes(
+        port.prepare_lanes(*_lanes(*(s[0] for s in streams))))
+    seeds = [tuple(leaf[i] for leaf in first[5]) for i in range(2)]
+    second = port.run_prepared_lanes(port.prepare_lanes(
+        *_lanes(*(s[1] for s in streams)), frame_offsets=[3, 3]), seeds)
+    got = port.to_host(second)
+    for i, (c1, c2) in enumerate(streams):
+        _, seed = port.track_clip(*c1, return_seed=True)
+        want, want_seed = port.track_clip(*c2, seed=seed, frame_offset=3,
+                                          return_seed=True)
+        _assert_outputs_match({k: v[i] for k, v in got.items()}, want)
+        for a, b in zip(second[5], want_seed):
+            np.testing.assert_allclose(a[i].numpy(), b.numpy(), atol=1e-3,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("keyframe_interval", [1, 3])
+def test_prepare_lanes_matches_reference_prepare(trackers, keyframe_interval):
+    """prepare_lanes of three clips with their own first global frames
+    gives, lane by lane, the reference's prepare of each clip alone (the
+    keyframe mask following each lane's offset), and prepare is its one-lane
+    case."""
+    import copy
+
+    ref, port = trackers
+    ref, port = copy.copy(ref), copy.copy(port)
+    for t in (ref, port):
+        t.cfg = replace(t.cfg, track=replace(
+            t.cfg.track, keyframe_interval=keyframe_interval))
+    clips = [_clip(0, 4), _clip(2, 4, drop_at=3, seed=3), _clip(5, 4, seed=4)]
+    offsets = [0, 4, 2]
+    lanes = port.prepare_lanes(*_lanes(*clips), frame_offsets=offsets)
+    for i, (clip, off) in enumerate(zip(clips, offsets)):
+        want = ref.prepare(*clip, frame_offset=off)
+        one = port.prepare(*clip, frame_offset=off)
+        for got, single, ref_leaf in zip(lanes, one, want):
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref_leaf))
+            np.testing.assert_array_equal(single.numpy(), np.asarray(ref_leaf))

@@ -246,24 +246,65 @@ def test_stub_scenario_matches_reference(name):
     globals()[f"check_{name}"](got)
 
 
+class ThreeLaneTracker(ClipTracker):
+    """Runs every clip as lane 1 of a batch of three: lane 0 holds the same
+    frames with every box moved 7 px, lane 2 the same clip with no valid
+    detection, both from the empty seed."""
+
+    def run_prepared(self, device_args, budget_frames=None, seed=None):
+        moved = list(device_args)
+        moved[1] = moved[1] + 7.0
+        moved[5] = moved[5] + 7.0
+        none = list(device_args)
+        none[4] = torch.zeros_like(device_args[4])
+        lanes = [torch.stack(x) for x in zip(moved, device_args, none)]
+        out = self.run_prepared_lanes(lanes, [None, seed, None],
+                                      budget_frames)
+        return (*(x[1] for x in out[:5]), tuple(s[1] for s in out[5]))
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_stub_scenario_as_a_lane_of_three(name):
+    """A clip tracked as one lane of a three-lane batch (run_prepared_lanes,
+    as MultiStreamTracker and track_clips run it) gives the one-lane run's
+    outputs and seed bit for bit: nothing crosses lanes, the recovery
+    budget is per lane, and the lanes' seeds stay apart."""
+    cfg = _cfg_for(name)
+    scenario = globals()[f"scen_{name}"]
+    want = scenario(ClipTracker(cfg, StubPoseTorch(), StubFlowTorch(),
+                                device="cpu"), cfg)
+    got = scenario(ThreeLaneTracker(cfg, StubPoseTorch(), StubFlowTorch(),
+                                    device="cpu"), cfg)
+    for g, w in zip(got, want):
+        for key in ("joints", "maxvals", "scores", "ids", "valid"):
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    globals()[f"check_{name}"](got)
+
+
 def test_clip_run_never_syncs_with_host():
     """The clip program queues device work only: no .item(), bool() or
-    int() of a tensor (aten::_local_scalar_dense) anywhere in run_prepared,
-    scans included; the one copy back is to_host's."""
+    int() of a tensor (aten::_local_scalar_dense) anywhere in run_prepared
+    or in a batched run_prepared_lanes of two lanes, one seeded, scans
+    included; the one copy back is to_host's."""
     cfg = _cfg_for("detector_miss_recovered")
     tracker = ClipTracker(cfg, StubPoseTorch(), StubFlowTorch(), device="cpu")
     frames, boxes, scores, _ = _dropout_scenario()
     args = tracker.prepare(frames, *pad_detections(boxes, scores,
                                                    cfg.track.max_persons))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        out = tracker.run_prepared(args)
-    names = {e.name for e in prof.events()}
-    assert "aten::_local_scalar_dense" not in names
-    assert "aten::item" not in names
-    assert {"clip.flow", "clip.pose", "clip.recovery_scan",
-            "clip.recovery_pose", "clip.id_scan"} <= names
-    assert tracker.to_host(out)["ids"].shape == (6, tracker.num_slots)
+    seed = tracker.run_prepared(args)[5]
+    runs = {(6, tracker.num_slots): lambda: tracker.run_prepared(args),
+            (2, 6, tracker.num_slots): lambda: tracker.run_prepared_lanes(
+                [torch.stack([a, a]) for a in args], [seed, None])}
+    for shape, run in runs.items():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = run()
+        names = {e.name for e in prof.events()}
+        assert "aten::_local_scalar_dense" not in names
+        assert "aten::item" not in names
+        assert {"clip.flow", "clip.pose", "clip.recovery_scan",
+                "clip.recovery_pose", "clip.id_scan"} <= names
+        assert tracker.to_host(out)["ids"].shape == shape
 
 
 class ContentPoseTorch(nn.Module):

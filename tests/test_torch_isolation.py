@@ -1,6 +1,6 @@
-"""The port's boundaries: no jax and nothing of the reference package in
-its imports or its smoke's, its config one for one with the reference's,
-no CPU fallback for CUDA.
+"""The port's boundaries: no jax, nothing of the reference package and no
+cv2 in its imports or its smoke's, its config one for one with the
+reference's, no CPU fallback for CUDA.
 
 These run on a machine without CUDA, where every CUDA entry point must
 refuse with RuntimeError instead of running the plain versions on the CPU,
@@ -34,7 +34,9 @@ PORT_MODULES = ["flowtrack_tpu_torch"] + sorted(
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (and runs its
-    CPU path once) without jax, flax or optax entering sys.modules."""
+    CPU path once) without jax, flax, optax or cv2 entering sys.modules:
+    the card's machine has none of them, and the video readers import cv2
+    only when they read a file."""
     code = (
         "import importlib, sys\n"
         f"mods = {PORT_MODULES!r}\n"
@@ -45,13 +47,18 @@ def test_port_imports_no_jax():
         "crop_resize_normalize(torch.zeros(8, 8, 3), torch.ones(1, 2),\n"
         "                      torch.ones(1, 2), (4, 4))\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'cv2'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(PORT_MODULES) >= 20
+    for mod in ("flowtrack_tpu_torch.serving", "flowtrack_tpu_torch.utils.video",
+                "flowtrack_tpu_torch.data.pose_dataset",
+                "flowtrack_tpu_torch.pipeline"):
+        assert mod in PORT_MODULES, mod
     assert proc.stdout.split()[0] == str(len(PORT_MODULES))
 
 
@@ -67,7 +74,7 @@ def test_port_and_smoke_import_nothing_of_the_reference():
         "chip_smoke.flownet2_config()\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('flowtrack_tpu', 'jax', 'jaxlib',\n"
-        "                                    'flax', 'optax'))\n"
+        "                                    'flax', 'optax', 'cv2'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -141,6 +148,26 @@ def test_clip_tracker_on_cuda_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         ClipTracker(Config(), torch.nn.Identity(), torch.nn.Identity(),
                     device="cuda")
+
+
+def test_serving_entry_points_on_cuda_raise_without_cuda():
+    """PosePredictor, FlowPredictor and FlowTracker take 'cuda' by default
+    and refuse without a CUDA device; the serving classes run on a
+    ClipTracker, which refuses the same way."""
+    from flowtrack_tpu_torch.pipeline import FlowPredictor, PosePredictor
+    from flowtrack_tpu_torch.tracking import FlowTracker
+
+    _require_no_cuda()
+    for make in (lambda: PosePredictor(Config(), torch.nn.Identity()),
+                 lambda: FlowPredictor(Config(), torch.nn.Identity()),
+                 lambda: FlowTracker(Config(), lambda *a: None),
+                 lambda: ClipTracker(Config(), torch.nn.Identity(),
+                                     torch.nn.Identity())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # on the CPU when asked
+    assert FlowTracker(Config(), lambda *a: None, device="cpu").device.type \
+        == "cpu"
 
 
 def test_kernel_loader_raises_without_cuda():

@@ -448,3 +448,88 @@ def test_postprocess_full_res_flow_matches_reference(variant):
     assert got.shape == want.shape == (2, 60, 100, 2)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     assert not tflownet.flow_output_is_full_res("flownet_sd")
+
+
+# ----------------------------------- divisions by a constant, bit for bit
+# On a CUDA device PyTorch divides a tensor by a Python scalar as a multiply
+# by the rounded reciprocal; the port divides by a tensor at each such site,
+# so its CPU run (and chip_smoke holds the card's to the CPU's) is the
+# reference's to the bit.
+
+def test_box_xyxy_to_center_scale_matches_reference_bitwise():
+    """The recovery crops' centers and scales (w / 0.75, / 200), on
+    aspect-wide and aspect-tall boxes of any size: equal bits."""
+    from flowtrack_tpu.tracking import clip_pipeline as jclip
+
+    rng = np.random.default_rng(20)
+    xy = rng.uniform(-50, 600, (4096, 2))
+    wh = rng.uniform(0.5, 400, (4096, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    for aspect in (192 / 256, 288 / 384, 48 / 64):
+        want = jclip._box_xyxy_to_center_scale(jnp.asarray(boxes), aspect)
+        got = tclip._box_xyxy_to_center_scale(T(boxes), aspect)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(N(g), np.asarray(w))
+    # leading lane axes change nothing
+    lanes = tclip._box_xyxy_to_center_scale(T(boxes.reshape(4, 1024, 4)),
+                                            0.75)
+    flat = tclip._box_xyxy_to_center_scale(T(boxes), 0.75)
+    for a, b in zip(lanes, flat):
+        np.testing.assert_array_equal(N(a).reshape(-1, 2), N(b))
+
+
+@pytest.mark.parametrize("out_wh", [(48, 64), (72, 96), (12, 16)])
+def test_affine_transform_inv_matches_reference_bitwise(out_wh):
+    """The decode's inverse map (scale * 200 / dst_w): equal bits."""
+    from flowtrack_tpu.ops.affine import get_affine_transform_jax
+    from flowtrack_tpu_torch.ops.affine import get_affine_transform_inv
+
+    rng = np.random.default_rng(21)
+    centers = rng.uniform(0, 640, (2048, 2)).astype(np.float32)
+    scales = rng.uniform(0.05, 4.0, (2048, 2)).astype(np.float32)
+    want = np.asarray(get_affine_transform_jax(centers, scales, 0.0, out_wh,
+                                               inv=True))
+    got = N(get_affine_transform_inv(T(centers), T(scales), out_wh))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_preprocess_pair_matches_reference_bitwise():
+    """uint8 pairs: the per-pair channel mean (jnp.mean: the sum, exact
+    here as every partial sum is an integer below 2^24, times the float32
+    1 / count) and the true division by 255 give equal bits; float frames
+    within 4 float32 ulps of |x| < 1 (the reference's float32 sum of 4480
+    values rounds in its own order, the port's float64 sum once; observed
+    2 ulps)."""
+    rng = np.random.default_rng(22)
+    im1 = rng.integers(0, 256, (3, 40, 56, 3), np.uint8)
+    im2 = rng.integers(0, 256, (3, 40, 56, 3), np.uint8)
+    np.testing.assert_array_equal(
+        N(tflownet.preprocess_pair(T(im1), T(im2))),
+        np.asarray(jflownet.preprocess_pair(im1, im2)))
+    f1, f2 = (rng.uniform(0, 255, (2, 40, 56, 3)).astype(np.float32)
+              for _ in range(2))
+    np.testing.assert_allclose(
+        N(tflownet.preprocess_pair(T(f1), T(f2))),
+        np.asarray(jflownet.preprocess_pair(f1, f2)), rtol=0, atol=2 ** -21)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cascade_divisions_match_reference_bitwise(dtype):
+    """FlowNet2's stage input ``flow / div_flow`` and the SD branch's
+    ``flow / div_flow`` (``flownet._div``), in the glue's dtype: equal bits
+    to jax's division."""
+    rng = np.random.default_rng(23)
+    flow = rng.normal(0, 30, (2, 2, 24, 32)).astype(np.float32)
+    want = np.asarray((jnp.asarray(flow).astype(dtype) / 20.0)
+                      .astype(jnp.float32))
+    got = N(tflownet._div(T(flow).to(getattr(torch, dtype)), 20.0).float())
+    np.testing.assert_array_equal(got, want)
+    # the stage input carries that quotient as channels 9:11
+    from flowtrack_tpu_torch.config import FlowConfig
+
+    net = tflownet.get_flow_net(FlowConfig(variant="flownet2_cs",
+                                           dtype="float32"))
+    x = T(rng.normal(0, 1, (2, 6, 24, 32)).astype(np.float32))
+    stage = N(net._stage_input(x, T(flow)))
+    np.testing.assert_array_equal(stage[:, 9:11],
+                                  np.asarray(jnp.asarray(flow) / 20.0))
