@@ -68,7 +68,17 @@ print one or more lines:
      at C=1 and C=4 under torch.profiler;
   9. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
      float32 glue) against float32 ones with the same weights, and the
-     fused R50 against the unfused bf16 and float32 ones, at full width.
+     fused R50 against the unfused bf16 and float32 ones, at full width;
+ 10. train: coco_res50_256x192's train section (R50 256x192, batch 32,
+     Adam, bf16) over a synthetic COCO set (tests/fixtures.py) through
+     BatchLoader, then timed steps on one batch on the card (ms/step,
+     samples/s; the loss must fall and the running statistics move); a
+     FlowNetC step and a FlowNet2 fine-tune step at 320x448, batch 8, timed,
+     with their K2 and warp launches; kernel-route gradients against
+     plain-route ones (bf16 and float32; K2 in FlowNetC, the warp in
+     FlowNet2), FlowNetC's conv1 gradient with
+     the cost volume detached, and K2 and the warp alone against central
+     differences, with the plain backward's time beside the forward's.
 
 Phase 3 also holds the divisions by a constant on the slice's path (the
 recovery crops' centers and scales, the decode's inverse map, the flow's
@@ -82,7 +92,7 @@ idle share per path, the fused R50's errors, the serving numbers), a JSON
 line with each kernel's numbers (launches from the fused path for crop and
 fused_stage, which must equal what the blocks' forms give, from the
 FlowNet2 path for correlation and resample2d; ``launches_by_path`` holds
-each path's counts, the serving run's included) and, last, the
+each path's counts, the serving and train runs' included) and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero.
 It needs the repository checkout (it imports the port from beside this
@@ -1768,6 +1778,405 @@ def phase_precision():
         fused_tol=POSE_BF16_REL_TOL)
 
 
+# the train phase: pose at the config's batch (32) on 256x192 crops from
+# a synthetic COCO set; FlowNetC and the FlowNet2 fine-tune at the flow
+# training crop, 320x448, batch 8
+TRAIN_POSE_IMAGES, TRAIN_LOADER_STEPS, TRAIN_TIMED_STEPS = 48, 3, 10
+FLOW_TRAIN_HW, FLOW_TRAIN_BATCH, FLOW_TIMED_STEPS = (320, 448), 8, 5
+# kernel route against plain route, one kernel at a time (K2 in FlowNetC,
+# the warp in FlowNet2): each parameter's gradient, max |diff| over its max
+# |gradient|. Only K2's summation order differs (the warp is bitwise), so
+# float32: under 1e-3. bf16: the volume's last-bit differences flip bf16
+# roundings of the activations, which the layers after it carry, so the
+# bound is what bf16 itself moves the gradients: the route may move them no
+# more than the float32 model's gradients lie from the bf16 model's (same
+# weights and batch). Both kernels' routes at once through the cascade are
+# logged, not bounded: its four warps turn K2's last-bit differences into
+# other taps wherever a sample sits near a pixel edge or the frame's
+ROUTE_GRAD_F32_TOL = 1e-3
+# the gradient check of K2 and the warp alone: <g, (f(x + e v) - f(x - e v))
+# / 2e> against <backward(g), v>, relative. K2 is bilinear in (f1, f2) and
+# the warp linear in the image and, inside a cell, bilinear in the flow, so
+# central differences are exact but for float32 rounding (the flow's: the
+# coordinates' ulp at 448 px over the 0.05 px step)
+FD_REL_TOL = {"correlation": 1e-3, "resample2d_img": 1e-4,
+              "resample2d_flow": 5e-3}
+
+
+def coco_fixture():
+    """The repository's synthetic COCO writer, tests/fixtures.py (json,
+    numpy and cv2 or PIL), loaded by its path: a ``tests`` package installed
+    on the card's machine would shadow the repository's."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "coco_fixture", Path(__file__).resolve().parent / "tests" / "fixtures.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def grads_of(model, loss_fn):
+    """{name: gradient (float32 copy)} of one forward and backward."""
+    model.zero_grad(set_to_none=True)
+    loss_fn().backward()
+    return {k: p.grad.detach().float().clone()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def grad_rel_diff(got, want) -> tuple:
+    """The largest, over parameters, of max |got - want| / max |want|, and
+    that parameter's name."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        err = ((got[k] - w).abs().max() / w.abs().max().clamp(min=1e-30)
+               ).item()
+        if err > worst:
+            worst, where = err, k
+    return worst, where
+
+
+def plain_route(kernels=()):
+    """Send the named kernels ("correlation", "resample2d") to their plain
+    versions on the card's tensors, the others to their kernels: the
+    Functions' dispatch rule."""
+    from flowtrack_tpu_torch.ops import correlation as corr_mod
+    from flowtrack_tpu_torch.ops import warp as warp_mod
+
+    for name, mod in (("correlation", corr_mod), ("resample2d", warp_mod)):
+        mod._runs_kernel = ((lambda t: False) if name in kernels
+                            else (lambda t: t.device.type != "cpu"))
+
+
+def flow_batch(rng, n, hw, dev):
+    """n preprocessed pairs (N, H, W, 6) of random uint8 frames and a
+    smooth ground-truth flow (N, H, W, 2) of up to +-8 px, on ``dev``."""
+    from flowtrack_tpu_torch.models.flownet import preprocess_pair
+
+    h, w = hw
+    frames = torch.as_tensor(rng.integers(0, 256, (2, n, h, w, 3), np.uint8),
+                             device=dev)
+    gt = smooth_flow(rng, n, h, w, 8.0, dev).permute(0, 2, 3, 1).contiguous()
+    return {"input": preprocess_pair(frames[0], frames[1]).contiguous(),
+            "flow": gt}
+
+
+def route_check(tag, model, model32, batch, div_flow, kernels, card_f):
+    """The gradients of one train-mode forward and backward of the bf16
+    ``model`` and of ``model32`` (float32, the same weights), same batch,
+    cuDNN deterministic: through the kernels (twice: the floor the library
+    leaves), with ``kernels`` sent to their plain versions (bounded), and
+    with both sent there (logged). Returns {dtype: max relative route
+    difference of ``kernels``}."""
+    from flowtrack_tpu_torch.engine.loss import epe, multiscale_epe
+
+    x = batch["input"].permute(0, 3, 1, 2).contiguous()
+
+    def loss_of(net):
+        def loss():
+            out = net.train()(x)
+            if isinstance(out, tuple):
+                return multiscale_epe([f.permute(0, 2, 3, 1) for f in out],
+                                      batch["flow"], div_flow=div_flow)
+            return epe(out.permute(0, 2, 3, 1), batch["flow"])
+        return loss
+
+    routes = {"kernel": (), "again": (), "plain": kernels,
+              "both_plain": ("correlation", "resample2d")}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    grads = {}
+    try:
+        for dtype, net in (("bfloat16", model), ("float32", model32)):
+            for route, plain in routes.items():
+                plain_route(plain)
+                grads[dtype, route] = grads_of(net, loss_of(net))
+    finally:
+        plain_route()
+        torch.backends.cudnn.deterministic = deterministic
+    bf16_vs_f32, _ = grad_rel_diff(grads["bfloat16", "kernel"],
+                                   grads["float32", "kernel"])
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        kernel = grads[dtype, "kernel"]
+        err, where = grad_rel_diff(kernel, grads[dtype, "plain"])
+        floor, _ = grad_rel_diff(grads[dtype, "again"], kernel)
+        both, _ = grad_rel_diff(kernel, grads[dtype, "both_plain"])
+        tol = bf16_vs_f32 if dtype == "bfloat16" else ROUTE_GRAD_F32_TOL
+        log("train", check="route_gradients", net=tag, dtype=dtype,
+            plain=",".join(kernels), max_rel_diff=err, worst_param=where,
+            repeat_rel_diff=floor, both_plain_rel_diff=both, tol=tol,
+            params=len(kernel), card=card_f)
+        require(err <= tol, f"{tag} {dtype}: gradients through the "
+                            f"{kernels} kernels differ from the plain "
+                            f"route's by {err} ({where}) > {tol}")
+        out[dtype] = err
+    log("train", check="route_gradients", net=tag,
+        bf16_vs_float32_rel_diff=bf16_vs_f32, card=card_f)
+    return out
+
+
+def fd_check(dev, rng, card_f):
+    """K2 and the warp alone at the paths' shapes, float32: the plain
+    backward's directional derivative against central differences of the
+    kernel's forward; the backward's time beside the forward's."""
+    from flowtrack_tpu_torch.ops import correlation as corr_mod
+    from flowtrack_tpu_torch.ops import warp as warp_mod
+
+    h, w = FLOW_TRAIN_HW
+    n = FLOW_TRAIN_BATCH
+    shape = (n, 256, h // 8, w // 8)
+    f1, f2, v1, v2 = (torch.as_tensor(rng.standard_normal(shape),
+                                      dtype=torch.float32, device=dev)
+                      for _ in range(4))
+    out = corr_mod.correlation_cuda(f1, f2)
+    g = torch.as_tensor(rng.standard_normal(out.shape), dtype=torch.float32,
+                        device=dev)
+    d1, d2 = corr_mod.correlation_backward(f1, f2, g)
+    eps = 1e-2
+    fd = ((corr_mod.correlation_cuda(f1 + eps * v1, f2 + eps * v2)
+           - corr_mod.correlation_cuda(f1 - eps * v1, f2 - eps * v2))
+          .double() * g.double()).sum() / (2 * eps)
+    an = (d1.double() * v1.double()).sum() + (d2.double() * v2.double()).sum()
+    errs = {"correlation": abs((fd - an) / an).item()}
+    times = {"correlation": (
+        time_ms(lambda: corr_mod.correlation_cuda(f1, f2), 10),
+        time_ms(lambda: corr_mod.correlation_backward(f1, f2, g), 3))}
+    bf1, bf2 = f1.to(torch.bfloat16), f2.to(torch.bfloat16)
+    times["correlation_bf16"] = (
+        time_ms(lambda: corr_mod.correlation_cuda(bf1, bf2), 10),
+        time_ms(lambda: corr_mod.correlation_backward(bf1, bf2, g), 3))
+
+    img = torch.as_tensor(rng.normal(0, 0.3, (n, 3, h, w)),
+                          dtype=torch.float32, device=dev)
+    # a cascade-like flow moved so that every sample lies inside the frame
+    # at a fraction in [0.3, 0.7] of its cell: steps of up to 0.05 px along
+    # vf cross no cell edge, where the bilinear weights bend, and the warp
+    # is bilinear along them, so central differences are exact but for
+    # rounding
+    flow = smooth_flow(rng, n, h, w, 8.0, dev)
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(w, dtype=torch.float32, device=dev),
+        torch.arange(h, dtype=torch.float32, device=dev), indexing="xy"))
+    hi = torch.tensor([w - 2.0, h - 2.0], device=dev).view(2, 1, 1)
+    at = torch.minimum((grid + flow).clamp(min=1.0), hi).floor()
+    frac = torch.as_tensor(rng.uniform(0.3, 0.7, flow.shape),
+                           dtype=torch.float32, device=dev)
+    flow = at + frac - grid
+    vi = torch.as_tensor(rng.standard_normal(img.shape), dtype=torch.float32,
+                         device=dev)
+    vf = torch.as_tensor(rng.uniform(-1.0, 1.0, flow.shape),
+                         dtype=torch.float32, device=dev)
+    gw = torch.as_tensor(rng.standard_normal(img.shape), dtype=torch.float32,
+                         device=dev)
+    di, dfl = warp_mod.resample2d_backward(img, flow, gw)
+    warp = warp_mod.resample2d_cuda
+    for key, e, args in (
+            ("resample2d_img", 1e-2, lambda s: (img + s * vi, flow)),
+            ("resample2d_flow", 0.05, lambda s: (img, flow + s * vf))):
+        fd = ((warp(*args(e)) - warp(*args(-e))).double() * gw.double()
+              ).sum() / (2 * e)
+        an = ((di * vi) if key == "resample2d_img" else (dfl * vf)
+              ).double().sum()
+        errs[key] = abs((fd - an) / an).item()
+    times["resample2d"] = (
+        time_ms(lambda: warp(img, flow), 20),
+        time_ms(lambda: warp_mod.resample2d_backward(img, flow, gw), 5))
+    torch.cuda.synchronize()
+    for key, err in errs.items():
+        require(err <= FD_REL_TOL[key], f"{key}: directional derivative "
+                f"off central differences by {err} > {FD_REL_TOL[key]}")
+    log("train", check="kernel_alone_central_differences", rel_err=errs,
+        tol=FD_REL_TOL, card=card_f)
+    for key, (fwd, bwd) in times.items():
+        log("train", check="kernel_alone", kernel=key,
+            shape="x".join(map(str, shape if "corr" in key else img.shape)),
+            forward_ms=fwd, backward_plain_ms=bwd, card=card_f)
+    SUMMARY["backward_ms"] = {k: round(b, 3) for k, (_, b) in times.items()}
+    return times
+
+
+def phase_train(card, dev=None):
+    """The training slice at full width with seeded random weights. Pose:
+    coco_res50_256x192's train section (R50 256x192, batch 32, Adam, bf16)
+    taking TRAIN_LOADER_STEPS steps from BatchLoader over a synthetic COCO
+    set, then timed steps on one batch kept on the device; the loss must
+    fall over them and the batch norms' running statistics move. Flow: a
+    FlowNetC step and a FlowNet2 fine-tune step at 320x448, batch 8, each
+    launching K2 (and the FlowNet2 one the warp); kernel-route gradients
+    against plain-route ones in float32 and bf16 (K2 in FlowNetC, the warp
+in FlowNet2); FlowNetC's conv1 gradient
+    with the cost volume detached, which must differ; K2 and the warp alone
+    against central differences, with the backward's time. Returns the
+    launch counts of the phase's train steps."""
+    import tempfile
+
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.data.coco import COCODataset
+    from flowtrack_tpu_torch.data.loader import BatchLoader, device_prefetch
+    from flowtrack_tpu_torch.engine.flow_train import flow_train_step
+    from flowtrack_tpu_torch.engine.loss import multiscale_epe
+    from flowtrack_tpu_torch.engine.train import create_train_state, train_step
+    from flowtrack_tpu_torch.models import flownet
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    dev = torch.device("cuda") if dev is None else dev
+    card_f = f"'{card}'"
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def peak_gb():
+        """Peak device memory since the last call, GiB."""
+        if not on_card:
+            return None
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
+    peak_gb()
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 7)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    # -- pose: loader steps, then timed steps on one batch on the device
+    cfg = get_config("coco_res50_256x192")
+    bs = cfg.train.batch_size
+    require(cfg.model.dtype == "bfloat16" and cfg.train.optimizer == "adam"
+            and bs == 32, "coco_res50_256x192 trains R50 bf16, Adam, 32")
+    model = get_pose_net(cfg.model, dev, gen)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _, ann, _ = coco_fixture().make_coco_fixture(
+            root, n_images=TRAIN_POSE_IMAGES, persons=2)
+        data = COCODataset(cfg, root, "val2017", True, ann)
+        loader = BatchLoader(data, bs, shuffle=True, drop_last=True)
+        state = create_train_state(model, cfg, steps_per_epoch=len(loader))
+        set_up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loader_losses = []
+        for i, batch in enumerate(device_prefetch(loader, dev)):
+            if i == TRAIN_LOADER_STEPS:
+                break
+            state, metrics = train_step(state, batch)
+            loader_losses.append(metrics["loss"])
+        sync()
+        loader_s = time.perf_counter() - t0
+    require(len(loader_losses) == TRAIN_LOADER_STEPS,
+            f"{len(loader_losses)} loader batches")
+    fixed = {k: batch[k] for k in ("input", "target", "target_weight")}
+    require(fixed["input"].shape == (bs, *cfg.model.image_size, 3)
+            and fixed["target"].shape == (bs, *cfg.model.heatmap_size, 17),
+            f"batch {fixed['input'].shape} {fixed['target'].shape}")
+    bn = model.bn1.running_mean.clone()
+    for _ in range(2):
+        state, metrics = train_step(state, fixed)
+    sync()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        state, metrics = train_step(state, fixed)
+        losses.append(metrics["loss"])
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED_STEPS
+    losses = [float(x) for x in loader_losses + losses]
+    require(all(np.isfinite(losses)), f"pose losses {losses}")
+    require(losses[-1] < losses[TRAIN_LOADER_STEPS],
+            f"pose loss did not fall on a fixed batch: {losses}")
+    require(not torch.equal(model.bn1.running_mean, bn),
+            "pose batch norm running statistics did not move")
+    SUMMARY["train_pose_ms_per_step"] = round(step_ms, 2)
+    SUMMARY["train_pose_samples_per_s"] = round(bs * 1e3 / step_ms, 1)
+    log("train", net=f"pose_resnet{cfg.model.num_layers}",
+        crop="x".join(map(str, cfg.model.image_size)), batch=bs,
+        dtype=cfg.model.dtype, optimizer=cfg.train.optimizer,
+        set_up_s=set_up_s, loader_steps=TRAIN_LOADER_STEPS,
+        loader_s=loader_s, timed_steps=TRAIN_TIMED_STEPS,
+        ms_per_step=step_ms, samples_per_s=bs * 1e3 / step_ms,
+        loss_first=losses[0], loss_fixed_first=losses[TRAIN_LOADER_STEPS],
+        loss_last=losses[-1], acc=float(metrics["acc"]),
+        peak_mem_gb=peak_gb(), card=card_f)
+    del model, state, fixed, batch, loader, data
+
+    # -- flow: FlowNetC and the FlowNet2 fine-tune, timed
+    n, (h, w) = FLOW_TRAIN_BATCH, FLOW_TRAIN_HW
+    fbatch = flow_batch(rng, n, (h, w), dev)
+    nets = {}
+    for tag, fcfg in (("flownet_c", get_config("flownet_c").flow),
+                      ("flownet2", flownet2_config().flow)):
+        require(fcfg.dtype == "bfloat16", f"{tag} trains in bf16")
+        net = flownet.get_flow_net(fcfg, dev, gen)
+        nets[tag] = net
+        state = create_train_state(net, get_config("flownet_c"))
+        before = {k: fn.launches for k, fn in counters.items()}
+        state, metrics = flow_train_step(state, fbatch, fcfg.div_flow)
+        sync()
+        step = {k: fn.launches - before[k] for k, fn in counters.items()}
+        require(step["correlation"] > 0, f"{tag}: K2 did not launch: {step}")
+        require(tag != "flownet2" or step["resample2d"] == 4,
+                f"{tag}: the warp launched {step['resample2d']} times, not 4")
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(FLOW_TIMED_STEPS):
+            state, metrics = flow_train_step(state, fbatch, fcfg.div_flow)
+            losses.append(metrics["loss"])
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / FLOW_TIMED_STEPS
+        losses = [float(x) for x in losses]
+        require(all(np.isfinite(losses)) and np.isfinite(float(metrics["epe"])),
+                f"{tag}: losses {losses}")
+        SUMMARY[f"train_{tag}_ms_per_step"] = round(ms, 2)
+        log("train", net=tag, shape=f"{n}x{h}x{w}", dtype=fcfg.dtype,
+            glue=fcfg.glue_dtype, ms_per_step=ms,
+            pairs_per_s=n * 1e3 / ms, launches_per_step=step,
+            loss_first=losses[0], loss_last=losses[-1],
+            epe=float(metrics["epe"]), peak_mem_gb=peak_gb(), card=card_f)
+        del state
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    # -- the gradient goes through the cost volume
+    fnc = nets["flownet_c"]
+    x = fbatch["input"].permute(0, 3, 1, 2).contiguous()
+
+    def conv1_grad():
+        fnc.zero_grad(set_to_none=True)
+        out = fnc.train()(x)
+        multiscale_epe([f.permute(0, 2, 3, 1) for f in out],
+                       fbatch["flow"]).backward()
+        return fnc.conv1[0].weight.grad.float().clone()
+
+    through = conv1_grad()
+    corr = flownet.correlation_nchw
+    flownet.correlation_nchw = lambda a, b, md, s2: corr(a.detach(),
+                                                         b.detach(), md, s2)
+    try:
+        detached = conv1_grad()
+    finally:
+        flownet.correlation_nchw = corr
+    moved = ((through - detached).abs().max() / through.abs().max()).item()
+    require(moved > 1e-3, f"FlowNetC conv1's gradient with the cost volume "
+                          f"detached moved only {moved}")
+    log("train", check="gradient_through_cost_volume",
+        conv1_rel_change_when_detached=moved, card=card_f)
+
+    # -- kernel route against plain route, bf16 and float32
+    route = {}
+    for tag, net in nets.items():
+        fcfg = flownet2_config().flow if tag == "flownet2" \
+            else get_config("flownet_c").flow
+        f32 = flownet.get_flow_net(replace(fcfg, dtype="float32"), dev)
+        f32.load_state_dict(net.state_dict())
+        kernels = ("resample2d",) if tag == "flownet2" else ("correlation",)
+        for dtype, err in route_check(tag, net, f32, fbatch, fcfg.div_flow,
+                                      kernels, card_f).items():
+            route[f"{tag}_{dtype}"] = float(f"{err:.3g}")
+        del f32
+    SUMMARY["route_grad_rel_diff"] = route
+    fd_check(dev, rng, card_f)
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1787,8 +2196,11 @@ def main() -> int:
     serving = phase_serving(card)
     torch.cuda.synchronize()
     phase_precision()
+    torch.cuda.empty_cache()
+    train = phase_train(card)
+    torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
-               "serving": serving}
+               "serving": serving, "train": train}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]

@@ -1,11 +1,11 @@
 """The port's configuration: constants, dataclasses and presets.
 
-Port of ``flowtrack_tpu/config.py`` for the inference paths the port runs,
-so that the port and its smoke import nothing of the reference package. The
-model, flow, test and track sections keep the reference's field names and
-defaults one for one (``tests/test_torch_isolation.py`` pins that), so a
-reference config and a port config drive ``ClipTracker`` alike. The
-training, data and mesh sections, yaml loading and dotted overrides are not
+Port of ``flowtrack_tpu/config.py``, so that the port and its smoke import
+nothing of the reference package. The model, flow, train, test, track and
+data sections keep the reference's field names and defaults one for one
+(``tests/test_torch_isolation.py`` pins that), so a reference config and a
+port config drive ``ClipTracker`` and the train steps alike. The mesh
+section (multi-device layouts), yaml loading and dotted overrides are not
 ported. The flow section's ``use_pallas_corr``, ``use_pallas_warp`` and
 ``pallas_warp_impl`` choose TPU kernels in the reference and have no effect
 here (``models/flownet.get_flow_net``).
@@ -49,7 +49,7 @@ class ModelConfig:
     deconv_with_bias: bool = False
     sigma: float = 2.0                        # GT gaussian sigma
     dtype: str = "bfloat16"                   # compute dtype
-    remat: bool = False                       # training only; unused here
+    remat: bool = False                       # not ported: no effect here
 
 
 @dataclass(frozen=True)
@@ -71,6 +71,25 @@ class FlowConfig:
     # FlowNet2 cascade inter-stage tensor dtype (upsampled flows, warped
     # frames, brightness errors)
     glue_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 32
+    lr: float = 1e-3
+    lr_factor: float = 0.1
+    lr_steps: Tuple[int, ...] = (90, 120)
+    end_epoch: int = 140
+    optimizer: str = "adam"
+    # augmentation (the lineage's COCODataset defaults)
+    flip_prob: float = 0.5
+    rot_factor: float = 40.0
+    scale_factor: float = 0.3
+    use_target_weight: bool = True
+    checkpoint_dir: str = "output/checkpoints"
+    print_freq: int = 100
+    seed: int = 0
+    shuffle: bool = True
 
 
 @dataclass(frozen=True)
@@ -109,22 +128,35 @@ class TrackConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "coco"          # coco | posetrack | mpii
+    root: str = "data/coco"
+    train_set: str = "train2017"
+    test_set: str = "val2017"
+    data_format: str = "jpg"
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "coco_res50_256x192"
     model: ModelConfig = field(default_factory=ModelConfig)
     flow: FlowConfig = field(default_factory=FlowConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     test: TestConfig = field(default_factory=TestConfig)
     track: TrackConfig = field(default_factory=TrackConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
 
 def _res(num_layers: int, image_size, heatmap_size, sigma, name,
-         num_joints: int = COCO_NUM_JOINTS) -> Config:
+         num_joints: int = COCO_NUM_JOINTS,
+         data: DataConfig = DataConfig()) -> Config:
     return Config(name=name, model=ModelConfig(
         num_layers=num_layers, image_size=image_size,
-        heatmap_size=heatmap_size, sigma=sigma, num_joints=num_joints))
+        heatmap_size=heatmap_size, sigma=sigma, num_joints=num_joints),
+        data=data)
 
 
-# the reference's presets, without their data and training sections
+# the reference's presets, without their mesh sections
 PRESETS = {
     "coco_res50_256x192": _res(50, (256, 192), (64, 48), 2.0, "coco_res50_256x192"),
     "coco_res50_384x288": _res(50, (384, 288), (96, 72), 3.0, "coco_res50_384x288"),
@@ -133,11 +165,15 @@ PRESETS = {
     "coco_res152_256x192": _res(152, (256, 192), (64, 48), 2.0, "coco_res152_256x192"),
     "coco_res152_384x288": _res(152, (384, 288), (96, 72), 3.0, "coco_res152_384x288"),
     "mpii_res50_256x256": _res(50, (256, 256), (64, 64), 2.0, "mpii_res50_256x256",
-                               MPII_NUM_JOINTS),
+                               MPII_NUM_JOINTS,
+                               DataConfig(dataset="mpii", root="data/mpii")),
     "flownet_s": Config(name="flownet_s", flow=FlowConfig(variant="flownet_s")),
     "flownet_c": Config(name="flownet_c", flow=FlowConfig(variant="flownet_c")),
+    # PoseTrack's sets are "train" / "val" (annotations/<set>.json)
     "flowtrack_posetrack": _res(152, (256, 192), (64, 48), 2.0,
-                                "flowtrack_posetrack"),
+                                "flowtrack_posetrack", data=DataConfig(
+                                    dataset="posetrack", root="data/posetrack",
+                                    train_set="train", test_set="val")),
 }
 
 

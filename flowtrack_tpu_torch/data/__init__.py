@@ -1,1 +1,2 @@
-"""PyTorch port of flowtrack_tpu/data: what the port's video reader needs."""
+"""PyTorch port of flowtrack_tpu/data: image loading, the COCO pose and the
+flow-pair datasets, and the batch loader that feeds the train steps."""

@@ -1,0 +1,60 @@
+"""Training-time heatmap accuracy (PCK-style) and a running mean.
+
+Port of ``flowtrack_tpu/engine/metrics.py``: ``heatmap_accuracy`` (:22)
+decodes the argmax of the predicted and the ground-truth heatmaps, divides
+their distance by the heatmap size / 10 and counts a joint right under
+``thr``, ignoring joints whose ground-truth peak is missing (a coordinate
+<= 1). It keeps the reference's quirk: (x, y) is divided by [h, w] / 10, h
+against x (:31-34). It runs on the device with no host sync; divisions are
+by tensors on the values' device. ``AverageMeter`` is host-side.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flowtrack_tpu_torch.ops.decode import get_max_preds
+
+
+def heatmap_accuracy(pred_hm, gt_hm, thr: float = 0.5):
+    """pred_hm, gt_hm (N, H, W, K) -> (mean accuracy, per-joint accuracy
+    (K,) with -1 for joints never visible, visible count), tensors."""
+    n, h, w, k = pred_hm.shape
+    pred, _ = get_max_preds(pred_hm)
+    target, _ = get_max_preds(gt_hm)
+    norm = (torch.tensor([h, w], dtype=torch.float32, device=pred.device)
+            / torch.tensor(10.0, device=pred.device))
+    dists = torch.linalg.norm((pred - target) / norm, dim=-1)     # (N, K)
+    visible = (target[..., 0] > 1.0) & (target[..., 1] > 1.0)     # (N, K)
+    correct = (dists < thr) & visible
+    cnt_per_joint = visible.sum(0)                                 # (K,)
+    acc_per_joint = torch.where(
+        cnt_per_joint > 0,
+        correct.sum(0) / cnt_per_joint.clamp(min=1),
+        torch.tensor(-1.0, device=pred.device))
+    valid = acc_per_joint >= 0
+    avg = (torch.where(valid, acc_per_joint, 0.0).sum()
+           / valid.sum().clamp(min=1))
+    return avg, acc_per_joint, cnt_per_joint.sum()
+
+
+class AverageMeter:
+    """Running average of host values."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        val = float(val)
+        self.val = val
+        self.sum += val * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / self.count if self.count else 0.0

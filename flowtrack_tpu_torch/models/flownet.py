@@ -11,8 +11,13 @@ Port of ``flowtrack_tpu/models/flownet.py``: ``ConvLeaky`` (flownet.py:45),
 
 The models take NCHW input (two stacked normalized frames, 6 channels, H
 and W multiples of 64). FlowNetS/C/SD return the quarter-resolution flow
-(N, 2, H/4, W/4) in float32, scaled by 1/div_flow; the FlowNet2 cascades
-return the final full-resolution flow (N, 2, H, W) in pixels. Module names
+(N, 2, H/4, W/4) in float32, scaled by 1/div_flow, and in train mode the
+pyramid (flow2, ..., flow6), each float32, as the reference's ``flows if
+train else flows[0]`` (flownet.py:173,220,276); batch-norm variants then
+normalise with the batch's statistics. The FlowNet2 cascades return the
+final full-resolution flow (N, 2, H, W) in pixels in either mode; their
+sub-nets stay in inference mode (running statistics, flow2 only), as the
+reference's cascades call them with ``train=False``. Module names
 are the lineage's state-dict names (``conv1.0.weight``, ``deconv5.0.*``,
 ``predict_flow6.*``, ``upsampled_flow6_to_5.weight``; the refinement
 trunk's layers sit at the top level; the cascades' sub-nets are
@@ -115,7 +120,7 @@ class _RefinementTrunk(nn.Module):
         self.predict_flow2 = _predict_flow(194, device)
 
     def refine(self, out_conv2, out_conv3, out_conv4, out_conv5, out_conv6):
-        """-> flow2 at 1/4 resolution (the inference output)."""
+        """-> (flow2, ..., flow6); flow2 at 1/4 resolution."""
         flow6 = self.predict_flow6(out_conv6)
         concat5 = torch.cat([out_conv5, self.deconv5(out_conv6),
                              self.upsampled_flow6_to_5(flow6)], 1)
@@ -128,12 +133,19 @@ class _RefinementTrunk(nn.Module):
         flow3 = self.predict_flow3(concat3)
         concat2 = torch.cat([out_conv2, self.deconv2(concat3),
                              self.upsampled_flow3_to_2(flow3)], 1)
-        return self.predict_flow2(concat2)
+        return self.predict_flow2(concat2), flow3, flow4, flow5, flow6
+
+
+def _flow_outputs(module, flows):
+    """flow2 in float32; in train mode the pyramid, each in float32."""
+    if module.training:
+        return tuple(f.float() for f in flows)
+    return flows[0].float()
 
 
 class FlowNetS(_RefinementTrunk):
     """FlowNetSimple: (N, in_channels, H, W) -> flow2 (N, 2, H/4, W/4)
-    float32. 6 input channels alone; 12 as a stage of the cascades (the
+    float32 (the pyramid in train mode). 6 input channels alone; 12 as a stage of the cascades (the
     pair, the warped second frame, the flow, the brightness error)."""
 
     def __init__(self, use_bn: bool = False, dtype=torch.float32,
@@ -160,9 +172,9 @@ class FlowNetS(_RefinementTrunk):
             out_conv4 = self.conv4_1(self.conv4(out_conv3))
             out_conv5 = self.conv5_1(self.conv5(out_conv4))
             out_conv6 = self.conv6_1(self.conv6(out_conv5))
-            flow2 = self.refine(out_conv2, out_conv3, out_conv4, out_conv5,
+            flows = self.refine(out_conv2, out_conv3, out_conv4, out_conv5,
                                 out_conv6)
-        return flow2.float()
+        return _flow_outputs(self, flows)
 
 
 class FlowNetC(_RefinementTrunk):
@@ -205,9 +217,9 @@ class FlowNetC(_RefinementTrunk):
             out_conv4 = self.conv4_1(self.conv4(out_conv3))
             out_conv5 = self.conv5_1(self.conv5(out_conv4))
             out_conv6 = self.conv6_1(self.conv6(out_conv5))
-            flow2 = self.refine(out_conv2a, out_conv3, out_conv4, out_conv5,
+            flows = self.refine(out_conv2a, out_conv3, out_conv4, out_conv5,
                                 out_conv6)
-        return flow2.float()
+        return _flow_outputs(self, flows)
 
 
 class FlowNetSD(nn.Module):
@@ -273,7 +285,7 @@ class FlowNetSD(nn.Module):
             concat2 = torch.cat([out_conv2, self.deconv2(concat3),
                                  self.upsampled_flow3_to_2(flow3)], 1)
             flow2 = self.predict_flow2(self.inter_conv2(concat2))
-        return flow2.float()
+        return _flow_outputs(self, (flow2, flow3, flow4, flow5, flow6))
 
 
 class FlowNetFusion(nn.Module):
@@ -347,6 +359,14 @@ class _Cascade(nn.Module):
         self.glue_dtype = glue_dtype
         self.flownetc = FlowNetC(use_bn, dtype=dtype, device=device)
 
+    def train(self, mode: bool = True):
+        """Train mode for the cascade; its sub-nets stay in inference
+        mode."""
+        self.training = mode
+        for sub in self.children():
+            sub.train(False)
+        return self
+
     def _up(self, flow2):
         """A sub-net's (rescaled) quarter-resolution flow -> full
         resolution in the glue dtype."""
@@ -376,6 +396,7 @@ class FlowNet2(_Cascade):
         self.flownets_2 = FlowNetS(use_bn, dtype, device, in_channels=12)
         self.flownets_d = FlowNetSD(use_bn, dtype, device)
         self.flownetfusion = FlowNetFusion(use_bn, dtype, device)
+        self.train()
 
     def forward(self, x):
         gdt, div = self.glue_dtype, self.div_flow
@@ -410,6 +431,7 @@ class FlowNet2CSS(_Cascade):
         for k in range(stages):
             setattr(self, f"flownets_{k + 1}",
                     FlowNetS(use_bn, dtype, device, in_channels=12))
+        self.train()
 
     def forward(self, x):
         flow = self._up(self.flownetc(x) * self.div_flow)

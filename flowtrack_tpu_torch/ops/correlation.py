@@ -12,7 +12,17 @@ Contract (the lineage's correlation package): kernel 1, max displacement
 ``md``, stride2 ``s2``, D = len({-md, -md+s2, ..., md}) shifts per axis,
 D*D output channels dy-major / dx-minor; channel (dy, dx) is the mean over
 input channels of ``f1[y, x] * f2[y+dy, x+dx]``, reading 0 outside the
-map; the output is float32. Forward only: training needs its backward.
+map; the output is float32 (float64 for float64 features).
+
+Gradients: ``correlation_nchw`` and ``correlation`` go through the
+``autograd.Function`` ``_Correlation``, whose forward is the kernel (or the
+plain version) and whose backward is ``correlation_backward``, plain
+PyTorch as the reference's ``_corr_bwd`` (correlation.py:195) is the VJP of
+its XLA version: for the volume's cotangent g, df1[y, x] = sum over d of
+g[y, x, d] * f2[y+dy, x+dx] / C and df2 the same products shifted back,
+one pass over the D*D displacements with no forward recomputed. The
+backward runs in the forward's autocast state and returns each gradient
+in its feature's dtype.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel of its dtype (``correlation_route``), or the wrapper raises.
@@ -40,13 +50,19 @@ def displacement_grid(max_displacement: int = 20, stride2: int = 2):
     return list(range(-max_displacement, max_displacement + 1, stride2))
 
 
+def _sum_dtype(dtype):
+    """float32 sums for bfloat16 and float32 features, float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def correlation_plain(f1, f2, max_displacement: int = 20, stride2: int = 2):
     """Plain PyTorch version: f1, f2 (N, H, W, C) -> (N, H, W, D*D) float32,
     D*D shifted elementwise products over a zero-padded f2."""
     n, h, w, c = f1.shape
     md = max_displacement
-    f1 = f1.float()
-    f2p = F.pad(f2.float(), (0, 0, md, md, md, md))
+    dt = _sum_dtype(f1.dtype)
+    f1 = f1.to(dt)
+    f2p = F.pad(f2.to(dt), (0, 0, md, md, md, md))
     inv_c = 1.0 / c
     outs = []
     for dy in displacement_grid(md, stride2):
@@ -140,14 +156,66 @@ def correlation_cuda(f1, f2, max_displacement: int = 20, stride2: int = 2):
 correlation_cuda.launches = 0
 
 
-def correlation_nchw(f1, f2, max_displacement: int = 20, stride2: int = 2):
-    """FlowNetC's call: NCHW features -> (N, D*D, H, W) float32 volume."""
-    if f1.device.type == "cpu":
-        out = correlation_plain(f1.permute(0, 2, 3, 1), f2.permute(0, 2, 3, 1),
-                                max_displacement, stride2)
+def correlation_backward(f1, f2, grad, max_displacement: int = 20,
+                         stride2: int = 2):
+    """The volume's VJP: f1, f2 (N, C, H, W), grad (N, D*D, H, W) ->
+    (df1, df2) in f1's and f2's dtypes, summed in float32 (float64 for
+    float64 features). df1 gathers g_d * f2 shifted by d, df2 scatters
+    g_d * f1 back by d, over a zero-padded f2's frame."""
+    n, c, h, w = f1.shape
+    md = max_displacement
+    dt = _sum_dtype(f1.dtype)
+    a = f1.to(dt)
+    f2p = F.pad(f2.to(dt), (md, md, md, md))
+    # the forward takes the sum times the rounded 1 / C
+    g = grad.to(dt) * (1.0 / c)
+    df1 = torch.zeros_like(a)
+    df2p = torch.zeros_like(f2p)
+    disps = displacement_grid(md, stride2)
+    for i, dy in enumerate(disps):
+        for j, dx in enumerate(disps):
+            gd = g[:, i * len(disps) + j].unsqueeze(1)
+            ys, xs = slice(md + dy, md + dy + h), slice(md + dx, md + dx + w)
+            df1.addcmul_(gd, f2p[:, :, ys, xs])
+            df2p[:, :, ys, xs].addcmul_(gd, a)
+    return df1.to(f1.dtype), df2p[:, :, md:md + h, md:md + w].to(f2.dtype)
+
+
+def _runs_kernel(t) -> bool:
+    """The dispatch rule: a tensor off the CPU takes the kernel."""
+    return t.device.type != "cpu"
+
+
+class _Correlation(torch.autograd.Function):
+    """The cost volume with its gradient: the kernel (or, for CPU tensors,
+    the plain version) forward, ``correlation_backward`` backward."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, f1, f2, max_displacement, stride2):
+        ctx.save_for_backward(f1, f2)
+        ctx.geometry = (max_displacement, stride2)
+        if _runs_kernel(f1):
+            return correlation_cuda(f1.contiguous(), f2.contiguous(),
+                                    max_displacement, stride2)
+        out = correlation_plain(f1.permute(0, 2, 3, 1),
+                                f2.permute(0, 2, 3, 1), max_displacement,
+                                stride2)
         return out.permute(0, 3, 1, 2)
-    return correlation_cuda(f1.contiguous(), f2.contiguous(),
-                            max_displacement, stride2)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        f1, f2 = ctx.saved_tensors
+        df1, df2 = correlation_backward(f1, f2, grad, *ctx.geometry)
+        return df1, df2, None, None
+
+
+def correlation_nchw(f1, f2, max_displacement: int = 20, stride2: int = 2):
+    """FlowNetC's call: NCHW features -> (N, D*D, H, W) float32 volume,
+    differentiable in f1 and f2."""
+    return _Correlation.apply(f1, f2, max_displacement, stride2)
 
 
 def correlation(f1, f2, max_displacement: int = 20, stride2: int = 2):

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from flowtrack_tpu_torch.ops.affine import affine_transform, get_affine_transform_inv
+from flowtrack_tpu_torch.ops.affine import (affine_transform_tensor,
+                                          get_affine_transform_inv)
 
 
 def get_max_preds(heatmaps):
@@ -55,7 +56,7 @@ def transform_preds(coords, center, scale, heatmap_hw):
     affine of (center, scale) (rotation 0)."""
     hm_h, hm_w = heatmap_hw
     inv = get_affine_transform_inv(center, scale, (hm_w, hm_h))
-    return affine_transform(coords, inv)
+    return affine_transform_tensor(coords, inv)
 
 
 def blur_heatmaps(heatmaps, kernel_size: int):

@@ -19,8 +19,18 @@ resample2d's contract: out[n, :, y, x] = img[n] sampled bilinearly at
 (x + u, y + v), coordinates clamped to [0, W-1] x [0, H-1], the 2x2 anchor
 clamped to (W-2, H-2) with the weights recomputed against it, weights in the
 image dtype, ``top = v00*(1-wx) + v01*wx`` (and ``bot``) then
-``top*(1-wy) + bot*wy``, each operation rounded in the image dtype. Forward
-only: training needs its backward.
+``top*(1-wy) + bot*wy``, each operation rounded in the image dtype. The
+coordinates are float32 (float64 for a float64 flow).
+
+Gradients: ``resample2d_nchw`` and ``resample2d`` go through the
+``autograd.Function`` ``_Resample2d``: the kernel (or the plain version)
+forward, ``resample2d_backward`` backward, plain PyTorch as the reference's
+``_warp_bwd`` (warp.py:536) is the VJP of its XLA warp. The image's
+gradient scatters g with the four bilinear weights; the flow's is the
+weights' derivative times the taps, times the clamp's derivative: 1 inside
+the frame, 0 outside, and 1/2 on the frame's edge, as ``jnp.clip`` splits a
+tie (a zero flow on the left or top edge sits on one); ``floor`` and the
+anchor's ``min(., W-2)`` carry none.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel, or the wrapper raises.
@@ -33,6 +43,16 @@ import torch
 from flowtrack_tpu_torch import kernels
 
 
+def _coordinates(flow):
+    """The unclamped sample coordinates (x + u, y + v), each (N, H, W), in
+    float32 (float64 for a float64 flow)."""
+    n, _, h, w = flow.shape
+    dt = torch.promote_types(flow.dtype, torch.float32)
+    xs = torch.arange(w, dtype=dt, device=flow.device)
+    ys = torch.arange(h, dtype=dt, device=flow.device)[:, None]
+    return xs + flow[:, 0].to(dt), ys + flow[:, 1].to(dt)
+
+
 def resample2d_plain(img, flow):
     """Plain PyTorch version: img (N, C, H, W) float32 or bfloat16, flow
     (N, 2, H, W) -> (N, C, H, W) in img's dtype."""
@@ -40,10 +60,9 @@ def resample2d_plain(img, flow):
     dt = img.dtype
     if h == 1 and w == 1:
         return img.clone()
-    xs = torch.arange(w, dtype=torch.float32, device=img.device)
-    ys = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
-    sx = (xs + flow[:, 0].float()).clamp(0.0, w - 1.0)
-    sy = (ys + flow[:, 1].float()).clamp(0.0, h - 1.0)
+    sx, sy = _coordinates(flow)
+    sx = sx.clamp(0.0, w - 1.0)
+    sy = sy.clamp(0.0, h - 1.0)
     flat = img.reshape(n, c, h * w)
 
     def tap(yi, xi):
@@ -102,11 +121,80 @@ def resample2d_cuda(img, flow):
 resample2d_cuda.launches = 0
 
 
-def resample2d_nchw(img, flow):
-    """The cascade's call: NCHW image and flow -> warped NCHW image."""
-    if img.device.type == "cpu":
+def _axis(s, size, dt):
+    """One axis of the backward: the clamped coordinate's anchor (long),
+    the neighbour's index, the weight of the neighbour in ``dt`` and the
+    clamp's derivative. An axis of one pixel has one tap of weight 1 and no
+    coordinate gradient."""
+    if size == 1:
+        zero = torch.zeros_like(s)
+        return zero.long(), zero.long(), zero.to(dt), zero.to(dt)
+    hi = size - 1.0
+    # jnp.clip's derivative: 1 inside, 1/2 on a bound (a tie), 0 outside
+    dclip = ((s > 0.0) & (s < hi)).to(dt) + 0.5 * ((s == 0.0) | (s == hi)).to(dt)
+    sc = s.clamp(0.0, hi)
+    a = sc.floor().clamp(max=size - 2.0)
+    return a.long(), a.long() + 1, (sc - a).to(dt), dclip
+
+
+def resample2d_backward(img, flow, grad):
+    """The warp's VJP: img (N, C, H, W), flow (N, 2, H, W) and the
+    output's cotangent ``grad`` -> (dimg, dflow) in img's and flow's dtypes,
+    computed in float32 (float64 for float64 inputs)."""
+    n, c, h, w = img.shape
+    dt = torch.promote_types(img.dtype, torch.float32)
+    sx, sy = _coordinates(flow)
+    x0, x1, wx, dcx = _axis(sx, w, dt)
+    y0, y1, wy, dcy = _axis(sy, h, dt)
+    wx, wy = wx.unsqueeze(1), wy.unsqueeze(1)
+    g = grad.to(dt)
+    flat = img.to(dt).reshape(n, c, h * w)
+    taps = [(yi * w + xi).reshape(n, 1, h * w).expand(n, c, h * w)
+            for yi, xi in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+    v00, v01, v10, v11 = (flat.gather(2, i).reshape(n, c, h, w)
+                          for i in taps)
+    g_top, g_bot = g * (1.0 - wy), g * wy
+    dimg = torch.zeros_like(flat)
+    for idx, part in zip(taps, (g_top * (1.0 - wx), g_top * wx,
+                                g_bot * (1.0 - wx), g_bot * wx)):
+        dimg.scatter_add_(2, idx, part.reshape(n, c, h * w))
+    top = v00 * (1.0 - wx) + v01 * wx
+    bot = v10 * (1.0 - wx) + v11 * wx
+    du = (g_top * (v01 - v00) + g_bot * (v11 - v10)).sum(1) * dcx
+    dv = (g * (bot - top)).sum(1) * dcy
+    dflow = torch.stack([du, dv], dim=1)
+    return dimg.reshape(n, c, h, w).to(img.dtype), dflow.to(flow.dtype)
+
+
+def _runs_kernel(t) -> bool:
+    """The dispatch rule: a tensor off the CPU takes the kernel."""
+    return t.device.type != "cpu"
+
+
+class _Resample2d(torch.autograd.Function):
+    """The warp with its gradient: the kernel (or, for CPU tensors, the
+    plain version) forward, ``resample2d_backward`` backward."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, img, flow):
+        ctx.save_for_backward(img, flow)
+        if _runs_kernel(img):
+            return resample2d_cuda(img.contiguous(), flow.contiguous())
         return resample2d_plain(img, flow)
-    return resample2d_cuda(img.contiguous(), flow.contiguous())
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        img, flow = ctx.saved_tensors
+        return resample2d_backward(img, flow, grad)
+
+
+def resample2d_nchw(img, flow):
+    """The cascade's call: NCHW image and flow -> warped NCHW image,
+    differentiable in both."""
+    return _Resample2d.apply(img, flow)
 
 
 def resample2d(img, flow):

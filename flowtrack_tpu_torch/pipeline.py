@@ -64,7 +64,8 @@ def model_device(device) -> torch.device:
     return device
 
 
-def flip_test_heatmaps(model, crops, flip_test: bool, shift: bool):
+def flip_test_heatmaps(model, crops, flip_test: bool, shift: bool,
+                       flip_pairs=COCO_FLIP_PAIRS):
     """(M, h, w, 3) crops -> heatmaps (M, h/4, w/4, K): with ``flip_test``
     one call on the crops and their mirror images, merged."""
     x = crops.permute(0, 3, 1, 2)
@@ -72,7 +73,7 @@ def flip_test_heatmaps(model, crops, flip_test: bool, shift: bool):
         return model(x).permute(0, 2, 3, 1)
     m = x.shape[0]
     hm = model(torch.cat([x, x.flip(3)])).permute(0, 2, 3, 1)
-    return merge_flip_test(hm[:m], hm[m:], COCO_FLIP_PAIRS, shift=shift)
+    return merge_flip_test(hm[:m], hm[m:], flip_pairs, shift=shift)
 
 
 class PosePredictor:

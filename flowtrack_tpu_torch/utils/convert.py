@@ -1,4 +1,5 @@
-"""Load the reference package's weights into the port's modules.
+"""Carry weights between the reference package's trees and the port's
+modules, both ways.
 
 The reference's variables (numpy trees of ``{"params", "batch_stats"}``, as
 ``flax`` init or an ``.npz`` checkpoint gives them) become lineage-named
@@ -6,7 +7,12 @@ state dicts and load with ``strict=True``, so a missing or extra name fails.
 The tree-to-state-dict functions are the port of the reverse half of
 ``flowtrack_tpu/utils/torch_convert.py`` (torch_convert.py:329-448), numpy
 only; ``tests/test_torch_models.py`` and ``tests/test_torch_flownet2.py``
-pin them to the reference's.
+pin them to the reference's. The other way, ``convert_pose_resnet`` and the
+``convert_flownet_*`` functions are the port's copy of its forward half
+(torch_convert.py:69-326): a port state dict (``num_batches_tracked``
+ignored) -> the reference's tree, which the reference loads.
+``named_parameters_from_tree`` maps a tree shaped like ``params`` (the
+reference's gradients, Adam moments) onto the port's parameter names.
 
 Layouts: the reference's conv kernels are HWIO, torch's Conv2d weights
 (Cout, Cin, kH, kW); its deconv kernels are spatially flipped HWIO (an
@@ -199,3 +205,178 @@ def load_fused_pose(module: nn.Module, fused_variables) -> nn.Module:
     place). A missing or an extra tensor fails."""
     module.load_state_dict(fused_state_dict(fused_variables), strict=True)
     return module
+
+
+# ---------------------------------------------------------------------------
+# The other way: port state dicts -> the reference's trees
+# ---------------------------------------------------------------------------
+
+def state_dict_to_numpy(sd) -> Dict[str, np.ndarray]:
+    """A state dict as numpy copies (a later in-place update of a tensor
+    does not reach them)."""
+    return {k: (v.detach().cpu().numpy().copy() if isinstance(v, torch.Tensor)
+                else np.array(v)) for k, v in sd.items()}
+
+
+def conv_kernel(w) -> np.ndarray:
+    """torch Conv2d (Cout, Cin, kH, kW) -> HWIO."""
+    return np.transpose(np.asarray(w), (2, 3, 1, 0))
+
+
+def deconv_kernel(w) -> np.ndarray:
+    """torch ConvTranspose2d (Cin, Cout, kH, kW) -> the reference's flipped
+    HWIO deconv kernel."""
+    return np.transpose(np.asarray(w), (2, 3, 0, 1))[::-1, ::-1].copy()
+
+
+def _set(tree: dict, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = np.asarray(value)
+
+
+def _bn(params, stats, path, prefix, sd):
+    _set(params, path + ("scale",), sd[prefix + ".weight"])
+    _set(params, path + ("bias",), sd[prefix + ".bias"])
+    _set(stats, path + ("mean",), sd[prefix + ".running_mean"])
+    _set(stats, path + ("var",), sd[prefix + ".running_var"])
+
+
+def convert_pose_resnet(sd, num_deconv_layers: int = 3) -> dict:
+    """PoseResNet state dict -> the reference's {"params", "batch_stats"}."""
+    sd = state_dict_to_numpy(sd)
+    params: dict = {}
+    stats: dict = {}
+    b = ("backbone",)
+    _set(params, b + ("conv1", "kernel"), conv_kernel(sd["conv1.weight"]))
+    _bn(params, stats, b + ("bn1",), "bn1", sd)
+    layer_re = re.compile(r"^layer(\d+)\.(\d+)\.")
+    blocks = sorted({tuple(map(int, m.groups())) for m in
+                     map(layer_re.match, sd) if m})
+    for li, bi in blocks:
+        blk, tp = b + (f"layer{li}_{bi}",), f"layer{li}.{bi}"
+        for ci in (1, 2, 3):
+            if f"{tp}.conv{ci}.weight" not in sd:
+                continue
+            _set(params, blk + (f"conv{ci}", "kernel"),
+                 conv_kernel(sd[f"{tp}.conv{ci}.weight"]))
+            _bn(params, stats, blk + (f"bn{ci}",), f"{tp}.bn{ci}", sd)
+        if f"{tp}.downsample.0.weight" in sd:
+            _set(params, blk + ("downsample_conv", "kernel"),
+                 conv_kernel(sd[f"{tp}.downsample.0.weight"]))
+            _bn(params, stats, blk + ("downsample_bn",),
+                f"{tp}.downsample.1", sd)
+    for i in range(num_deconv_layers):
+        _set(params, (f"deconv{i}", "kernel"),
+             deconv_kernel(sd[f"deconv_layers.{3 * i}.weight"]))
+        if f"deconv_layers.{3 * i}.bias" in sd:
+            _set(params, (f"deconv{i}", "bias"),
+                 sd[f"deconv_layers.{3 * i}.bias"])
+        _bn(params, stats, (f"deconv_bn{i}",), f"deconv_layers.{3 * i + 1}",
+            sd)
+    _set(params, ("final", "kernel"), conv_kernel(sd["final_layer.weight"]))
+    if "final_layer.bias" in sd:
+        _set(params, ("final", "bias"), sd["final_layer.bias"])
+    return {"params": params, "batch_stats": stats}
+
+
+# the layers of FlowNetS / C's shared refinement trunk, which the reference
+# nests under "trunk"
+_TRUNK_NAMES = frozenset(
+    [f"predict_flow{i}" for i in range(2, 7)]
+    + [f"deconv{i}" for i in range(2, 6)]
+    + [f"upsampled_flow{i}_to_{i - 1}" for i in range(3, 7)])
+
+
+def _convert_flownet_module(sd, prefix="", trunk_names=_TRUNK_NAMES):
+    params: dict = {}
+    stats: dict = {}
+    names = {k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)}
+    for name in sorted(names):
+        scope = ("trunk",) if name in trunk_names else ()
+        key = next(c for c in (f"{prefix}{name}.0", f"{prefix}{name}")
+                   if f"{c}.weight" in sd)
+        w = sd[f"{key}.weight"]
+        if name.startswith("upsampled_flow"):
+            path, kernel = scope + (name,), deconv_kernel(w)
+        elif name.startswith("predict_flow"):
+            path, kernel = scope + (name,), conv_kernel(w)
+        elif name.startswith("deconv"):
+            path, kernel = scope + (name, "deconv"), deconv_kernel(w)
+        else:  # a conv with an optional batch norm
+            path, kernel = scope + (name, "conv"), conv_kernel(w)
+        _set(params, path + ("kernel",), kernel)
+        if f"{key}.bias" in sd:
+            _set(params, path + ("bias",), sd[f"{key}.bias"])
+        if f"{prefix}{name}.1.running_mean" in sd:
+            _bn(params, stats, scope + (name, "bn"), f"{prefix}{name}.1", sd)
+    return params, stats
+
+
+def _flownet_tree(params, stats) -> dict:
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def convert_flownet_s(sd) -> dict:
+    """FlowNetS or FlowNetC state dict -> the reference's tree."""
+    return _flownet_tree(*_convert_flownet_module(state_dict_to_numpy(sd)))
+
+
+convert_flownet_c = convert_flownet_s
+
+
+def convert_flownet_sd(sd) -> dict:
+    """FlowNetSD or FlowNetFusion state dict (no shared trunk) -> the
+    reference's tree."""
+    return _flownet_tree(*_convert_flownet_module(
+        state_dict_to_numpy(sd), trunk_names=frozenset()))
+
+
+convert_flownet_fusion = convert_flownet_sd
+
+_FLOWNET2_SUBNETS = {"flownetc": _TRUNK_NAMES, "flownets_1": _TRUNK_NAMES,
+                     "flownets_2": _TRUNK_NAMES, "flownets_d": frozenset(),
+                     "flownetfusion": frozenset()}
+
+
+def convert_flownet2(sd) -> dict:
+    """FlowNet2 (or FlowNet2-CS / CSS) state dict -> the reference's tree,
+    one subtree a sub-net."""
+    sd = state_dict_to_numpy(sd)
+    params: dict = {}
+    stats: dict = {}
+    for sub, trunk in _FLOWNET2_SUBNETS.items():
+        p, s = _convert_flownet_module(sd, f"{sub}.", trunk)
+        if p:
+            params[sub] = p
+        if s:
+            stats[sub] = s
+    return _flownet_tree(params, stats)
+
+
+def _stats_like(params: dict) -> dict:
+    """A zero batch_stats tree for a params tree: each batch-norm node
+    ({scale, bias}) gets {mean, var}."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            if set(v) == {"scale", "bias"}:
+                z = np.zeros_like(np.asarray(v["scale"]))
+                out[k] = {"mean": z, "var": z}
+            else:
+                out[k] = _stats_like(v)
+    return out
+
+
+def named_parameters_from_tree(module: nn.Module, params: dict,
+                               reverse=reverse_pose_resnet) -> Dict[str, np.ndarray]:
+    """A tree shaped like the reference's ``params`` (gradients, optimizer
+    moments) -> {name: array} over ``module.named_parameters()``, through
+    ``reverse`` (``reverse_pose_resnet``, ``reverse_flownet`` or
+    ``reverse_flownet2``). A parameter the tree lacks raises KeyError."""
+    sd = reverse({"params": params, "batch_stats": _stats_like(params)})
+    return {name: np.asarray(sd[name]) for name, _ in module.named_parameters()}

@@ -86,7 +86,7 @@ def test_flownet_sd_matches_reference(variables):
     sub = {"params": variables["params"]["flownets_d"]}
     x = _pairs(1)
     want = _jax(jflownet.FlowNetSD(dtype=jnp.float32), sub, x)
-    got = _port(load_flownet(tflownet.FlowNetSD(), sub), x)
+    got = _port(load_flownet(tflownet.FlowNetSD(), sub).eval(), x)
     assert got.shape == want.shape == (2, HW // 4, HW // 4, 2)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * np.abs(want).max())

@@ -1,6 +1,6 @@
 """The port's boundaries: no jax, nothing of the reference package and no
-cv2 in its imports or its smoke's, its config one for one with the
-reference's, no CPU fallback for CUDA.
+cv2 in its imports or its smoke's (the training modules' included), its
+config one for one with the reference's, no CPU fallback for CUDA.
 
 These run on a machine without CUDA, where every CUDA entry point must
 refuse with RuntimeError instead of running the plain versions on the CPU,
@@ -57,7 +57,16 @@ def test_port_imports_no_jax():
     assert len(PORT_MODULES) >= 20
     for mod in ("flowtrack_tpu_torch.serving", "flowtrack_tpu_torch.utils.video",
                 "flowtrack_tpu_torch.data.pose_dataset",
-                "flowtrack_tpu_torch.pipeline"):
+                "flowtrack_tpu_torch.pipeline",
+                "flowtrack_tpu_torch.data.coco", "flowtrack_tpu_torch.data.coco_io",
+                "flowtrack_tpu_torch.data.loader",
+                "flowtrack_tpu_torch.data.flow_dataset",
+                "flowtrack_tpu_torch.eval.flow_eval",
+                "flowtrack_tpu_torch.engine.loss",
+                "flowtrack_tpu_torch.engine.metrics",
+                "flowtrack_tpu_torch.engine.train",
+                "flowtrack_tpu_torch.engine.flow_train",
+                "flowtrack_tpu_torch.engine.checkpoint"):
         assert mod in PORT_MODULES, mod
     assert proc.stdout.split()[0] == str(len(PORT_MODULES))
 
@@ -82,7 +91,8 @@ def test_port_and_smoke_import_nothing_of_the_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("section", ["model", "flow", "test", "track"])
+@pytest.mark.parametrize("section", ["model", "flow", "train", "test", "track",
+                                     "data"])
 def test_port_config_sections_match_reference(section):
     """Each section the port keeps has the reference's field names, types
     and defaults, in the same order."""
@@ -94,7 +104,7 @@ def test_port_config_sections_match_reference(section):
     assert port_cls.__name__ == ref_cls.__name__
     assert spec(port_cls) == spec(ref_cls)
     assert [f.name for f in dataclasses.fields(port_config.Config)] == [
-        "name", "model", "flow", "test", "track"]
+        "name", "model", "flow", "train", "test", "track", "data"]
     for name in ("COCO_NUM_JOINTS", "COCO_FLIP_PAIRS", "COCO_SIGMAS",
                  "MPII_NUM_JOINTS", "PIXEL_STD", "IMAGENET_MEAN",
                  "IMAGENET_STD"):
@@ -103,11 +113,12 @@ def test_port_config_sections_match_reference(section):
 
 @pytest.mark.parametrize("name", sorted(ref_config.PRESETS))
 def test_port_presets_match_reference(name):
-    """Every reference preset is in the port, equal in each section the port
-    keeps; an unknown name raises KeyError."""
+    """Every reference preset is in the port, equal field for field in each
+    section the port keeps (all but the mesh); an unknown name raises
+    KeyError."""
     got, want = port_config.get_config(name), ref_config.get_config(name)
     assert got.name == want.name
-    for section in ("model", "flow", "test", "track"):
+    for section in ("model", "flow", "train", "test", "track", "data"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section)), section
     assert sorted(port_config.PRESETS) == sorted(ref_config.PRESETS)
