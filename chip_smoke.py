@@ -12,8 +12,9 @@ with the FlowNet2 cascade; slice 3, the BN-folded fused backbone
 stands, PoseResNet-50 folded into ``FusedPoseResNet`` with FlowNetS; and
 the serving slice on slice 1's models: ``serving.MultiStreamTracker``,
 ``serving.StreamingClipTracker`` and the per-frame ``tracking.FlowTracker``
-over ``pipeline.PosePredictor`` and ``FlowPredictor``. Phases that each
-print one or more lines:
+over ``pipeline.PosePredictor`` and ``FlowPredictor``; and the port's
+command-line entry points (``flowtrack_tpu_torch/tools``) with the
+evaluators behind them. Phases that each print one or more lines:
 
   1. device: refuses to run without CUDA; prints the card's name and power
      limit as nvidia-smi reports them;
@@ -50,7 +51,24 @@ print one or more lines:
      the FlowNet2 cascade's full-resolution flow on 360x640 frames); ids
      must stay stable across clip boundaries and survive a dropped
      detection, and equal the port's plain run on the CPU;
-  8. serving: slice 1's models at full width (every candidate kept); four
+  8. eval: the port's CLIs through their own ``main``, their stdout kept
+     aside: ``track`` with flowtrack_posetrack (R152 256x192) and FlowNetC,
+     bf16, seeded random weights written as the reference's .npz, over a
+     synthetic PoseTrack set of 2 videos x 16 frames of 384x640 with 4
+     persons (tests/fixtures.py), under the stream and the clip engine, the
+     crop and correlation launch counts read around each run, tracks.json's
+     keys and the printed stats checked, ms a frame of the tracking; ``test``
+     (coco_res50_256x192) on a synthetic COCO set, its ten AP stats finite;
+     ``track_video`` with the two videos as two streams, ``demo`` on one
+     frame and ``eval_flow`` with FlowNetC on 4 pairs against a .flo
+     truth, each with its launches read; then the closed loops of
+     ``bench.py`` through the port's evaluators: gaussian heatmaps planted
+     at known joints of 8 images x 8 persons, decoded and rescored on the
+     card (COCO AP 1.0, decode error under one heatmap cell, equal to the
+     CPU's within 1e-3 px), and the planted stubs on a 6-frame clip with a
+     detector miss at frame 3 (PoseTrack MOTA 1.0 and no switch from both
+     backends, the run with no miss as the truth);
+  9. serving: slice 1's models at full width (every candidate kept); four
      streams of 40 frames submitted in turns to MultiStreamTracker
      (16-frame clips, the four streams batched as lanes of one run) at
      pipeline depths 0 and 1, with the launches of one batched step read
@@ -66,10 +84,10 @@ print one or more lines:
      against 4 track_clip calls in turns (frames/s of both, every slot
      equal with the nets at one lane's batch); device events per lane-clip
      at C=1 and C=4 under torch.profiler;
-  9. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
+ 10. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
      float32 glue) against float32 ones with the same weights, and the
      fused R50 against the unfused bf16 and float32 ones, at full width;
- 10. train: coco_res50_256x192's train section (R50 256x192, batch 32,
+ 11. train: coco_res50_256x192's train section (R50 256x192, batch 32,
      Adam, bf16) over a synthetic COCO set (tests/fixtures.py) through
      BatchLoader, then timed steps on one batch on the card (ms/step,
      samples/s; the loss must fall and the running statistics move); a
@@ -92,7 +110,8 @@ idle share per path, the fused R50's errors, the serving numbers), a JSON
 line with each kernel's numbers (launches from the fused path for crop and
 fused_stage, which must equal what the blocks' forms give, from the
 FlowNet2 path for correlation and resample2d; ``launches_by_path`` holds
-each path's counts, the serving and train runs' included) and, last, the
+each path's counts, the eval, serving and train runs' included) and, last,
+the
 device line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero.
 It needs the repository checkout (it imports the port from beside this
@@ -1997,6 +2016,388 @@ def fd_check(dev, rng, card_f):
     return times
 
 
+# -- the eval phase: the port's CLIs and the closed loops ---------------------
+
+# the track CLIs' PoseTrack set: slice 1's frame size, 2 videos x 16
+# frames, 4 persons; eval_flow on 4 pairs; the GT-heatmap loop's 8 images of
+# PERSONS persons; the dropout loop's 6-frame clip, a miss at frame 3
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_PERSONS = 2, 16, 4
+EVAL_FLOW_PAIRS = 4
+LOOP_IMAGES = 8
+DROP_FRAMES, DROP_AT, DROP_VEL = 6, 3, (6.0, 3.0)
+
+
+def cli_config(name, opts):
+    """The config a CLI builds from ``--cfg name`` and its overrides."""
+    from flowtrack_tpu_torch.config import apply_overrides, get_config
+
+    return apply_overrides(get_config(name), opts)
+
+
+def write_npz_weights(path, model, convert) -> str:
+    """A port model's weights as the reference's .npz tree, which the CLIs
+    read through their own loaders."""
+    from flowtrack_tpu_torch.engine.checkpoint import save_npz_variables
+
+    save_npz_variables(path, convert(model.state_dict()))
+    return path
+
+
+def run_cli(main, argv, counters, total):
+    """One CLI run with every launch count set to 0 just before and read
+    just after (and added to ``total``); its stdout (its json line, its
+    log) kept out of the smoke's. -> (main's return value, launches,
+    seconds)."""
+    import contextlib
+    import io
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        total[k] += n
+    return out, launches, seconds
+
+
+def heatmap_loop(dev):
+    """``bench.py``'s GT-heatmap closed loop on ``dev``: gaussian heatmaps
+    planted at known joints of LOOP_IMAGES x PERSONS persons (the port's
+    generate_target_np on each person's crop), get_final_preds and rescore
+    on ``dev``, scored by the port's COCOKeypointEval. -> (stats, largest
+    decode error in image pixels, decoded joints)."""
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.eval.coco_eval import COCOKeypointEval
+    from flowtrack_tpu_torch.ops.affine import (affine_transform,
+                                                get_affine_transform)
+    from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
+    from flowtrack_tpu_torch.ops.heatmap import generate_target_np
+    from flowtrack_tpu_torch.pipeline import batched_box_to_center_scale
+
+    cfg = get_config("coco_res50_256x192")
+    ih, iw = cfg.model.image_size
+    hh, hw = cfg.model.heatmap_size
+    k = cfg.model.num_joints
+    rng = np.random.default_rng(SEED)
+    gts, hms, centers, scales, img_ids, gt_joints = [], [], [], [], [], []
+    for img in range(LOOP_IMAGES):
+        boxes = np.stack([rng.uniform(10, 300, PERSONS),
+                          rng.uniform(10, 300, PERSONS),
+                          rng.uniform(80, 160, PERSONS),
+                          rng.uniform(120, 220, PERSONS)], axis=1)
+        c, s = batched_box_to_center_scale(boxes, iw / ih)
+        for i in range(PERSONS):
+            x0, y0, w, h = boxes[i]
+            joints = np.stack([rng.uniform(x0 + 0.15 * w, x0 + 0.85 * w, k),
+                               rng.uniform(y0 + 0.15 * h, y0 + 0.85 * h, k)],
+                              axis=1)
+            trans = get_affine_transform(c[i], s[i], 0.0, (iw, ih))
+            hm, _ = generate_target_np(affine_transform(joints, trans),
+                                       np.ones(k), (hh, hw), (ih, iw),
+                                       cfg.model.sigma)
+            hms.append(hm)
+            gt_joints.append(joints)
+            kp = np.concatenate([joints, np.full((k, 1), 2.0)], 1)
+            gts.append({"image_id": img, "area": float(w * h),
+                        "bbox": [float(x0), float(y0), float(w), float(h)],
+                        "keypoints": kp.reshape(-1).tolist(), "iscrowd": 0,
+                        "num_keypoints": k})
+            centers.append(c[i])
+            scales.append(s[i])
+            img_ids.append(img)
+    preds, maxvals = get_final_preds(
+        torch.as_tensor(np.stack(hms), device=dev),
+        torch.as_tensor(np.stack(centers), dtype=torch.float32, device=dev),
+        torch.as_tensor(np.stack(scales), dtype=torch.float32, device=dev))
+    scores = rescore(torch.ones(len(hms), device=dev), maxvals,
+                     cfg.test.in_vis_thre)
+    preds, maxvals = preds.cpu().numpy(), maxvals.cpu().numpy()
+    scores = scores.cpu().numpy()
+    err = float(np.abs(preds - np.stack(gt_joints)).max())
+    dts = [{"image_id": img_ids[i], "score": float(scores[i]),
+            "keypoints": np.concatenate([preds[i], maxvals[i][:, None]],
+                                        1).reshape(-1).tolist()}
+           for i in range(len(hms))]
+    return COCOKeypointEval(gts, dts).evaluate(), err, preds
+
+
+def dropout_loop(dev):
+    """``bench.py``'s dropout-recovery closed loop on ``dev``: the planted
+    pose and constant flow stubs through ClipTracker on a 6-frame clip
+    (persons A and B moving at DROP_VEL, 30x30 boxes, 64x64 crops), B's
+    detection missed at frame DROP_AT; the ground truth is the same run
+    with no miss. -> (direct stats, motmetrics-style stats)."""
+    from flowtrack_tpu_torch.config import Config, ModelConfig
+    from flowtrack_tpu_torch.eval.posetrack_eval import (
+        evaluate_posetrack, evaluate_posetrack_mot)
+    from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
+                                                            pad_detections)
+
+    cfg = Config(model=ModelConfig(image_size=(64, 64), heatmap_size=(16, 16),
+                                   dtype="float32"))
+    cfg = replace(cfg, test=replace(cfg.test, flip_test=False),
+                  track=replace(cfg.track, max_persons=4, pose_score_thre=0.1,
+                                track_oks_thre=0.3))
+    tracker = ClipTracker(cfg, PlantedPose(cfg.model.heatmap_size, dev),
+                          ConstantFlow(DROP_VEL, cfg.flow.div_flow, dev),
+                          device=dev)
+    vx, vy = DROP_VEL
+    frames = np.zeros((DROP_FRAMES, 128, 160, 3), np.float32)
+
+    def run(drop):
+        boxes, scores = [], []
+        for t in range(DROP_FRAMES):
+            bs = [[40 + vx * t - 15, 50 + vy * t - 15, 30, 30]]
+            if t != drop:
+                bs.append([90 + vx * t - 15, 60 + vy * t - 15, 30, 30])
+            boxes.append(bs)
+            scores.append([0.9, 0.8][:len(bs)])
+        return tracker.track_clip(frames, *pad_detections(
+            boxes, scores, cfg.track.max_persons))
+
+    full, out = run(None), run(DROP_AT)
+    k = full["joints"].shape[2]
+    gt_seq = [[{"track_id": pid, "head_size": 20.0,
+                "keypoints": np.concatenate([full["joints"][t, pid],
+                                             np.ones((k, 1))], 1)}
+               for pid in range(2)] for t in range(DROP_FRAMES)]
+    pred_seq = [[{"track_id": int(out["ids"][t, s]),
+                  "keypoints": np.concatenate(
+                      [out["joints"][t, s], out["maxvals"][t, s][:, None]], 1),
+                  "score": float(out["scores"][t, s])}
+                 for s in range(out["valid"].shape[1]) if out["valid"][t, s]]
+                for t in range(DROP_FRAMES)]
+    return (evaluate_posetrack([gt_seq], [pred_seq]),
+            evaluate_posetrack_mot([gt_seq], [pred_seq]))
+
+
+def phase_eval(card, dev=None):
+    """The port's CLIs on the card, through their own ``main``: ``track``
+    (flowtrack_posetrack, R152 256x192 with FlowNetC, bf16, seeded random
+    weights written as the reference's .npz) over a PoseTrack set of
+    EVAL_VIDEOS x EVAL_FRAMES frames of 384x640 with EVAL_PERSONS persons,
+    under both engines, K1 and K2 launched by each; ``test``
+    (coco_res50_256x192) on a synthetic COCO set, its AP table finite;
+    ``track_video`` with two streams, ``demo`` on one frame and
+    ``eval_flow`` with FlowNetC on EVAL_FLOW_PAIRS pairs with a .flo ground
+    truth, each with its launches read; then the closed loops through the
+    port's evaluators: planted heatmaps decoded on the card (AP 1.0, decode
+    error under a heatmap cell, equal to the CPU's within 1e-3 px), and the
+    dropout clip (MOTA 1.0 and no switch from both PoseTrack backends).
+    Returns the launch counts summed over the phase's CLI runs."""
+    import tempfile
+    from pathlib import Path
+
+    from flowtrack_tpu_torch.eval.flow_eval import write_flo
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tools import (demo, eval_flow, test, track,
+                                           track_video)
+    from flowtrack_tpu_torch.utils.convert import (convert_flownet_s,
+                                                   convert_pose_resnet)
+
+    dev = torch.device("cuda") if dev is None else dev
+    card_f = f"'{card}'"
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    t_phase = time.perf_counter()
+    pt_opts = ["flow.variant=flownet_c", "track.pose_score_thre=0.0"]
+    pt_cfg = cli_config("flowtrack_posetrack", pt_opts)
+    coco_cfg = cli_config("coco_res50_256x192", [])
+    require(pt_cfg.model.dtype == pt_cfg.flow.dtype == "bfloat16",
+            "the track CLI's nets run in bf16")
+    gen = torch.Generator().manual_seed(SEED)
+    fixtures = coco_fixture()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        pose152 = write_npz_weights(
+            str(tmp / "r152.npz"), get_pose_net(pt_cfg.model, None, gen),
+            convert_pose_resnet)
+        flownet_c = write_npz_weights(
+            str(tmp / "flownet_c.npz"), get_flow_net(pt_cfg.flow, None, gen),
+            convert_flownet_s)
+        pose50 = write_npz_weights(
+            str(tmp / "r50.npz"), get_pose_net(coco_cfg.model, None, gen),
+            convert_pose_resnet)
+        root, ann_file = fixtures.make_posetrack_fixture(
+            tmp / "pt", n_videos=EVAL_VIDEOS, n_frames=EVAL_FRAMES,
+            persons=EVAL_PERSONS, img_hw=(FRAME_H, FRAME_W), seed=SEED)
+        log("eval", setup_s=time.perf_counter() - t0,
+            config="flowtrack_posetrack_flownet_c", model=
+            f"R{pt_cfg.model.num_layers}_{pt_cfg.model.dtype}",
+            frames=f"{EVAL_VIDEOS}x{EVAL_FRAMES}", frame_hw=f"{FRAME_H}x"
+            f"{FRAME_W}", persons=EVAL_PERSONS)
+
+        # -- track, both engines; the tracking alone timed a frame
+        spent, originals = {}, {n: getattr(track, n) for n in
+                                ("track_all", "track_all_clips")}
+
+        def timed(name):
+            def run(*args, **kwargs):
+                t = time.perf_counter()
+                out = originals[name](*args, **kwargs)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                spent[name] = time.perf_counter() - t
+                return out
+            return run
+
+        for name in originals:
+            setattr(track, name, timed(name))
+        try:
+            for engine, name in (("stream", "track_all"),
+                                 ("clip", "track_all_clips")):
+                out_dir = tmp / f"track_{engine}"
+                stats, launches, seconds = run_cli(track.main, [
+                    "--cfg", "flowtrack_posetrack", "--pose-weights", pose152,
+                    "--flow-weights", flownet_c, "--out", str(out_dir),
+                    "--engine", engine, "--device", dev.type, *pt_opts,
+                    f"data.root={root}", "data.test_set=val"], counters,
+                    total)
+                require(launches["crop_resize_normalize"] > 0
+                        and launches["correlation"] > 0,
+                        f"track --engine {engine}: K1 or K2 never launched: "
+                        f"{launches}")
+                with open(out_dir / "tracks.json") as f:
+                    anns = json.load(f)["annotations"]
+                require(anns and all(set(a) == {
+                    "image_id", "track_id", "keypoints", "scores", "score",
+                    "category_id"} and len(a["keypoints"]) == 51
+                    for a in anns), f"track {engine}: tracks.json")
+                scalars = {k: v for k, v in stats.items()
+                           if not hasattr(v, "shape")}
+                require(all(np.isfinite(v) for v in scalars.values()),
+                        f"track {engine}: {scalars}")
+                n_frames = EVAL_VIDEOS * EVAL_FRAMES
+                ms = spent[name] / n_frames * 1e3
+                SUMMARY.setdefault("eval_track_ms_per_frame", {})[engine] = \
+                    round(ms, 2)
+                log("eval", cli="track", engine=engine, frames=n_frames,
+                    poses=len(anns), ms_per_frame=ms, main_s=seconds,
+                    launches=launches, mAP=scalars["mAP"],
+                    MOTA=scalars["MOTA"], card=card_f)
+        finally:
+            for name, fn in originals.items():
+                setattr(track, name, fn)
+
+        # -- test: the AP table of coco_res50_256x192 on a synthetic set
+        coco_root, _, det = fixtures.make_coco_fixture(
+            tmp / "coco", n_images=LOOP_IMAGES, persons=2)
+        stats, launches, seconds = run_cli(test.main, [
+            "--weights", pose50, "--out", str(tmp / "eval"),
+            "--device", dev.type, f"data.root={coco_root}",
+            f"test.bbox_file={det}"], counters, total)
+        require(len(stats) == 10 and all(np.isfinite(v)
+                                         for v in stats.values()),
+                f"test: AP table {stats}")
+        log("eval", cli="test", config="coco_res50_256x192",
+            persons=2 * LOOP_IMAGES, seconds=seconds, launches=launches,
+            ap_table={k: round(v, 4) for k, v in stats.items()}, card=card_f)
+
+        # -- track_video: the two videos as two streams, GT boxes
+        with open(ann_file) as f:
+            ann = json.load(f)
+        per_image = {}
+        for a in ann["annotations"]:
+            per_image.setdefault(a["image_id"], []).append(
+                {"bbox": a["bbox"], "score": 1.0})
+        videos, dets = [], []
+        for vid in range(EVAL_VIDEOS):
+            images = sorted((im for im in ann["images"]
+                             if im["vid_id"] == f"{vid:06d}"),
+                            key=lambda im: im["frame_id"])
+            path = tmp / f"dets_{vid}.json"
+            path.write_text(json.dumps([per_image[im["id"]]
+                                        for im in images]))
+            videos.append(str(Path(root) / "images" / "val" / f"{vid:06d}"))
+            dets.append(str(path))
+        out, launches, seconds = run_cli(track_video.main, [
+            "--cfg", "flowtrack_posetrack", "--pose-weights", pose152,
+            "--flow-weights", flownet_c, "--video", *videos,
+            "--detections", *dets, "--out", str(tmp / "video"),
+            "--clip-len", str(EVAL_FRAMES), "--device", dev.type, *pt_opts],
+            counters, total)
+        require(launches["crop_resize_normalize"] > 0
+                and launches["correlation"] > 0,
+                f"track_video: K1 or K2 never launched: {launches}")
+        require(out["streams"] == EVAL_VIDEOS and out["instances"] > 0,
+                f"track_video: {out}")
+        log("eval", cli="track_video", streams=out["streams"],
+            instances=out["instances"], seconds=seconds, launches=launches,
+            card=card_f)
+
+        # -- demo: the first frame and its boxes
+        boxes = tmp / "boxes.json"
+        boxes.write_text(json.dumps(
+            [d["bbox"] for d in json.loads(Path(dets[0]).read_text())[0]]))
+        out, launches, seconds = run_cli(demo.main, [
+            "--weights", pose50, "--image", str(Path(videos[0]) /
+                                                 "000000.png"),
+            "--boxes", str(boxes), "--out", str(tmp / "demo.png"),
+            "--device", dev.type], counters, total)
+        require(launches["crop_resize_normalize"] > 0,
+                f"demo: K1 never launched: {launches}")
+        require(out["persons"] == EVAL_PERSONS
+                and np.isfinite(out["scores"]).all()
+                and (tmp / "demo.png").exists(), f"demo: {out}")
+        log("eval", cli="demo", persons=out["persons"], seconds=seconds,
+            launches=launches, card=card_f)
+
+        # -- eval_flow: FlowNetC on the first pairs, a zero-flow truth
+        frames_dir, flo_dir = tmp / "flow_frames", tmp / "flo"
+        frames_dir.mkdir()
+        flo_dir.mkdir()
+        for t in range(EVAL_FLOW_PAIRS + 1):
+            (frames_dir / f"{t:06d}.png").symlink_to(
+                Path(videos[0]) / f"{t:06d}.png")
+        for t in range(EVAL_FLOW_PAIRS):
+            write_flo(str(flo_dir / f"{t:06d}.flo"),
+                      np.zeros((FRAME_H, FRAME_W, 2), np.float32))
+        out, launches, seconds = run_cli(eval_flow.main, [
+            "--cfg", "flownet_c", "--weights", flownet_c,
+            "--frames", str(frames_dir), "--gt-flow", str(flo_dir),
+            "--device", dev.type], counters, total)
+        require(launches["correlation"] > 0,
+                f"eval_flow: K2 never launched: {launches}")
+        require(out["n_frames"] == EVAL_FLOW_PAIRS
+                and np.isfinite(out["epe"]), f"eval_flow: {out}")
+        log("eval", cli="eval_flow", pairs=out["pairs"], epe=out["epe"],
+            seconds=seconds, launches=launches, card=card_f)
+
+    # -- closed loops through the port's evaluators
+    stats, err, preds = heatmap_loop(dev)
+    _, cpu_err, cpu_preds = heatmap_loop(torch.device("cpu"))
+    cpu_diff = float(np.abs(preds - cpu_preds).max())
+    cell = coco_cfg.model.image_size[0] / coco_cfg.model.heatmap_size[0]
+    require(stats["AP"] == 1.0, f"heatmap loop: AP {stats}")
+    require(err < cell, f"heatmap loop: decode error {err} px")
+    require(cpu_diff <= 1e-3, f"heatmap loop: card against CPU {cpu_diff}")
+    SUMMARY["eval_heatmap_loop_ap_err_px"] = (stats["AP"], round(err, 4))
+    log("eval", loop="gt_heatmap", poses=LOOP_IMAGES * PERSONS,
+        AP=stats["AP"], AP50=stats["AP50"], AP75=stats["AP75"],
+        max_decode_err_px=err, cpu_max_decode_err_px=cpu_err,
+        card_vs_cpu_px=cpu_diff, card=card_f)
+    direct, mot = dropout_loop(dev)
+    for name, s in (("direct", direct), ("mot", mot)):
+        require(s["MOTA"] == 1.0 and s["num_switches"] == 0,
+                f"dropout loop, {name} backend: {s}")
+    SUMMARY["eval_dropout_loop_mota"] = (direct["MOTA"], mot["MOTA"])
+    log("eval", loop="dropout_recovery", frames=DROP_FRAMES,
+        miss_at=DROP_AT, MOTA=direct["MOTA"], MOTA_mot=mot["MOTA"],
+        mAP=direct["mAP"], switches=direct["num_switches"],
+        misses=direct["num_misses"], fps=direct["num_fps"], card=card_f)
+    SUMMARY["eval_phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("eval", phase_s=time.perf_counter() - t_phase, launches=total,
+        card=card_f)
+    return total
+
+
 def phase_train(card, dev=None):
     """The training slice at full width with seeded random weights. Pose:
     coco_res50_256x192's train section (R50 256x192, batch 32, Adam, bf16)
@@ -2193,6 +2594,8 @@ def main() -> int:
     phase_tracking("flownet_c", (FRAME_H, FRAME_W))
     phase_tracking("flownet2", (FN2_H, FN2_W))
     torch.cuda.synchronize()
+    eval_ = phase_eval(card)
+    torch.cuda.synchronize()
     serving = phase_serving(card)
     torch.cuda.synchronize()
     phase_precision()
@@ -2200,7 +2603,7 @@ def main() -> int:
     train = phase_train(card)
     torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
-               "serving": serving, "train": train}
+               "eval": eval_, "serving": serving, "train": train}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]

@@ -5,16 +5,16 @@ nothing of the reference package. The model, flow, train, test, track and
 data sections keep the reference's field names and defaults one for one
 (``tests/test_torch_isolation.py`` pins that), so a reference config and a
 port config drive ``ClipTracker`` and the train steps alike. The mesh
-section (multi-device layouts), yaml loading and dotted overrides are not
-ported. The flow section's ``use_pallas_corr``, ``use_pallas_warp`` and
+section (multi-device layouts) and yaml loading are not ported; the CLIs'
+dotted overrides (``apply_overrides``) are. The flow section's ``use_pallas_corr``, ``use_pallas_warp`` and
 ``pallas_warp_impl`` choose TPU kernels in the reference and have no effect
 here (``models/flownet.get_flow_net``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Tuple
+from dataclasses import dataclass, field, replace
+from typing import Any, Tuple
 
 COCO_NUM_JOINTS = 17
 COCO_FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
@@ -26,6 +26,9 @@ COCO_SIGMAS: Tuple[float, ...] = (
     0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
 )
 MPII_NUM_JOINTS = 16
+MPII_FLIP_PAIRS: Tuple[Tuple[int, int], ...] = (
+    (0, 5), (1, 4), (2, 3), (10, 15), (11, 14), (12, 13),
+)
 
 PIXEL_STD = 200.0  # box scale is expressed in units of 200 px
 
@@ -145,6 +148,33 @@ class Config:
     test: TestConfig = field(default_factory=TestConfig)
     track: TrackConfig = field(default_factory=TrackConfig)
     data: DataConfig = field(default_factory=DataConfig)
+
+
+def _nested_replace(obj: Any, dotted: str, value: Any) -> Any:
+    head, _, rest = dotted.partition(".")
+    if not rest:
+        cur = getattr(obj, head)
+        if cur is not None and not isinstance(value, type(cur)):
+            if isinstance(cur, bool):
+                value = str(value).lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                value = int(value)
+            elif isinstance(cur, float):
+                value = float(value)
+            elif isinstance(cur, tuple):
+                value = tuple(type(cur[0])(v) for v in str(value).split(","))
+        return replace(obj, **{head: value})
+    return replace(obj, **{head: _nested_replace(getattr(obj, head), rest,
+                                                 value)})
+
+
+def apply_overrides(cfg: Config, overrides) -> Config:
+    """Apply dotted overrides: ['test.flip_test=false',
+    'model.num_layers=152']."""
+    for item in overrides or ():
+        key, _, val = item.partition("=")
+        cfg = _nested_replace(cfg, key.strip().lower(), val.strip())
+    return cfg
 
 
 def _res(num_layers: int, image_size, heatmap_size, sigma, name,

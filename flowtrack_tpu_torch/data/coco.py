@@ -1,6 +1,6 @@
 """The COCO keypoint dataset.
 
-Port of ``flowtrack_tpu/data/coco.py`` (:33-150), the part training needs:
+Port of ``flowtrack_tpu/data/coco.py``:
 
 * the train db: one record per person annotation with labelled keypoints
   and a clean box (clamped to the image, positive area), its center and
@@ -8,26 +8,29 @@ Port of ``flowtrack_tpu/data/coco.py`` (:33-150), the part training needs:
   (``ops/affine.box_to_center_scale``);
 * the eval db: the detections json (``cfg.test.bbox_file``) above
   ``image_thre``, after box NMS at ``nms_thre`` when that is under 1
-  (``ops/nms.nms_boxes_np``, the numpy twin of the reference's native
-  NMS), or the ground-truth boxes with ``use_gt_bbox``.
-
-``evaluate`` needs the COCO keypoint evaluator (``eval/coco_eval.py``),
-which is not ported yet (ROADMAP item 23): it raises NotImplementedError.
+  (``native.cpu_nms``), or the ground-truth boxes with ``use_gt_bbox``;
+* ``evaluate`` (coco.py:147): per image OKS-NMS at ``oks_thre``
+  (``native.cpu_oks_nms``) or soft OKS-NMS (``ops/nms.soft_oks_nms_np``)
+  over the rescored poses, the results json in ``output_dir``, and the
+  port's COCO keypoint AP (``eval/coco_eval.py``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+from collections import defaultdict
 from typing import List, Optional
 
 import numpy as np
 
+from flowtrack_tpu_torch import native
 from flowtrack_tpu_torch.config import COCO_FLIP_PAIRS, COCO_NUM_JOINTS, Config
 from flowtrack_tpu_torch.data.coco_io import COCOIndex
 from flowtrack_tpu_torch.data.pose_dataset import PoseDataset
+from flowtrack_tpu_torch.eval.coco_eval import COCOKeypointEval, summarize
 from flowtrack_tpu_torch.ops.affine import box_to_center_scale
-from flowtrack_tpu_torch.ops.nms import nms_boxes_np
+from flowtrack_tpu_torch.ops.nms import soft_oks_nms_np
 
 
 class COCODataset(PoseDataset):
@@ -107,8 +110,7 @@ class COCODataset(PoseDataset):
                                  d["bbox"][1] + d["bbox"][3],
                                  d.get("score", 1.0)] for d in img_dets],
                                np.float32)
-                for i in nms_boxes_np(arr.astype(np.float64),
-                                      self.cfg.test.nms_thre):
+                for i in native.cpu_nms(arr, self.cfg.test.nms_thre):
                     kept.append(img_dets[i])
             dets = kept
         db = []
@@ -134,6 +136,56 @@ class COCODataset(PoseDataset):
         return db
 
     def evaluate(self, preds, maxvals, scores, image_ids, output_dir=None):
-        raise NotImplementedError(
-            "COCO keypoint evaluation needs the port of eval/coco_eval.py "
-            "(ROADMAP item 23)")
+        """COCO keypoint evaluation.
+
+        preds: (N, K, 2) image-space keypoints; maxvals: (N, K) confidences;
+        scores: (N,) rescored person scores (ops/decode.rescore output);
+        image_ids: (N,) ints. Returns (stats dict, results list).
+        """
+        preds = np.asarray(preds)
+        maxvals = np.asarray(maxvals)
+        scores = np.asarray(scores)
+        image_ids = np.asarray(image_ids)
+
+        by_img = defaultdict(list)
+        for i in range(len(preds)):
+            kpts = np.concatenate([preds[i], maxvals[i][:, None]], axis=1)
+            xs, ys = preds[i, :, 0], preds[i, :, 1]
+            area = (xs.max() - xs.min()) * (ys.max() - ys.min())
+            by_img[int(image_ids[i])].append({
+                "keypoints": kpts, "score": float(scores[i]), "area": area,
+            })
+
+        results = []
+        for img_id, kpt_list in by_img.items():
+            if self.cfg.test.soft_nms:
+                keep, _ = soft_oks_nms_np(kpt_list, self.cfg.test.oks_thre)
+            else:
+                keep = native.cpu_oks_nms(kpt_list, self.cfg.test.oks_thre)
+            if len(keep) == 0:
+                keep = range(len(kpt_list))
+            for i in keep:
+                k = kpt_list[i]
+                results.append({
+                    "image_id": img_id,
+                    "category_id": 1,
+                    "keypoints": [round(float(v), 3)
+                                  for v in k["keypoints"].reshape(-1)],
+                    "score": k["score"],
+                })
+
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            res_file = os.path.join(
+                output_dir, f"keypoints_{self.image_set}_results.json")
+            with open(res_file, "w") as f:
+                json.dump(results, f)
+
+        gts = self.index.person_gts_for_eval(self.num_joints)
+        dts = [{"image_id": r["image_id"], "keypoints": r["keypoints"],
+                "score": r["score"]} for r in results]
+        stats = COCOKeypointEval(gts, dts).evaluate()
+        return stats, results
+
+    def print_eval(self, stats):
+        print(summarize(stats))

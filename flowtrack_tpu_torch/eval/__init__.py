@@ -1,1 +1,2 @@
-"""PyTorch port of flowtrack_tpu/eval: the optical-flow metrics."""
+"""PyTorch port of flowtrack_tpu/eval: COCO keypoint AP, PoseTrack mAP and
+MOTA, and the optical-flow metrics."""

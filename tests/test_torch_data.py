@@ -183,7 +183,8 @@ def test_generate_target_matches_reference():
 
 def test_coco_db_matches_reference(coco_root):
     """The train db from the annotations, and the eval db from the
-    detections with box NMS at 0.3, record for record."""
+    detections with box NMS at 0.3, record for record; evaluate's stats
+    and results."""
     root, ann, det = coco_root
     port_cfg, ref_cfg = _cfgs()
     pairs = [(coco.COCODataset(port_cfg, root, "val2017", True, ann),
@@ -201,8 +202,14 @@ def test_coco_db_matches_reference(coco_root):
                 np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     assert ours.index.person_gts_for_eval() == \
         theirs.index.person_gts_for_eval()
-    with pytest.raises(NotImplementedError, match="item 23"):
-        ours.evaluate(None, None, None, None)
+    # evaluate on the ground-truth joints of the train db, as the reference
+    db = pairs[0][0].db
+    args = (np.stack([r["joints"] for r in db]),
+            np.ones((len(db), 17), np.float32),
+            np.asarray([r["score"] for r in db], np.float32),
+            np.asarray([r["image_id"] for r in db]))
+    got, want = ours.evaluate(*args), theirs.evaluate(*args)
+    assert got == want and got[0]["AP"] == 1.0
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -66,7 +66,20 @@ def test_port_imports_no_jax():
                 "flowtrack_tpu_torch.engine.metrics",
                 "flowtrack_tpu_torch.engine.train",
                 "flowtrack_tpu_torch.engine.flow_train",
-                "flowtrack_tpu_torch.engine.checkpoint"):
+                "flowtrack_tpu_torch.engine.checkpoint",
+                "flowtrack_tpu_torch.eval.coco_eval",
+                "flowtrack_tpu_torch.eval.posetrack_eval",
+                "flowtrack_tpu_torch.data.posetrack",
+                "flowtrack_tpu_torch.data.mpii",
+                "flowtrack_tpu_torch.utils.vis",
+                "flowtrack_tpu_torch.utils.logging",
+                "flowtrack_tpu_torch.native",
+                "flowtrack_tpu_torch.tools.common",
+                "flowtrack_tpu_torch.tools.test",
+                "flowtrack_tpu_torch.tools.track",
+                "flowtrack_tpu_torch.tools.track_video",
+                "flowtrack_tpu_torch.tools.demo",
+                "flowtrack_tpu_torch.tools.eval_flow"):
         assert mod in PORT_MODULES, mod
     assert proc.stdout.split()[0] == str(len(PORT_MODULES))
 
@@ -106,7 +119,7 @@ def test_port_config_sections_match_reference(section):
     assert [f.name for f in dataclasses.fields(port_config.Config)] == [
         "name", "model", "flow", "train", "test", "track", "data"]
     for name in ("COCO_NUM_JOINTS", "COCO_FLIP_PAIRS", "COCO_SIGMAS",
-                 "MPII_NUM_JOINTS", "PIXEL_STD", "IMAGENET_MEAN",
+                 "MPII_NUM_JOINTS", "MPII_FLIP_PAIRS", "PIXEL_STD", "IMAGENET_MEAN",
                  "IMAGENET_STD"):
         assert getattr(port_config, name) == getattr(ref_config, name), name
 
@@ -124,6 +137,26 @@ def test_port_presets_match_reference(name):
     assert sorted(port_config.PRESETS) == sorted(ref_config.PRESETS)
     with pytest.raises(KeyError):
         port_config.get_config(name + "_x")
+
+
+def test_port_overrides_match_reference():
+    """The CLIs' dotted overrides: the same coercions (bool, int, float,
+    tuple, str) give the same sections; a key the port lacks raises."""
+    opts = ["test.flip_test=false", "model.num_layers=18",
+            "model.image_size=64,48", "track.box_expand=0.2",
+            "flow.variant=flownet_c", "TEST.IN_VIS_THRE=0.3",
+            "data.root=/data/x", "track.clip_recover=1"]
+    got = port_config.apply_overrides(port_config.get_config(
+        "flowtrack_posetrack"), opts)
+    want = ref_config.apply_overrides(ref_config.get_config(
+        "flowtrack_posetrack"), opts)
+    for section in ("model", "flow", "train", "test", "track", "data"):
+        assert dataclasses.asdict(getattr(got, section)) == \
+            dataclasses.asdict(getattr(want, section)), section
+    assert got.model.image_size == (64, 48) and not got.test.flip_test
+    with pytest.raises(AttributeError):
+        port_config.apply_overrides(port_config.Config(),
+                                    ["mesh.num_devices=2"])
 
 
 def test_port_ships_with_the_package_config():
