@@ -96,7 +96,29 @@ evaluators behind them. Phases that each print one or more lines:
      plain-route ones (bf16 and float32; K2 in FlowNetC, the warp in
      FlowNet2), FlowNetC's conv1 gradient with
      the cost volume detached, and K2 and the warp alone against central
-     differences, with the plain backward's time beside the forward's.
+     differences, with the plain backward's time beside the forward's;
+ 12. train_cli: the train CLIs through their own ``main``, the launch
+     counts read around each run: ``train_flow`` with FlowNetC at 320x448,
+     batch 8, bf16, 2 epochs over a synthetic FlyingChairs-style corpus of
+     16 pairs of 384x512 with a smooth planted flow (8 more for
+     validation): K2 launched, val_epe finite, ``--resume`` to a third
+     epoch, the saved .npz through ``eval_flow`` (K2 launched), one step
+     under torch.profiler (the device ms of the step, K2's forward and
+     plain backward, the warp's, the convolutions); the FlowNet2 variant
+     one epoch (K2 and the warp launched, finite); ``train`` with
+     coco_res50_256x192 (R50 256x192, batch 32, bf16) 2 epochs with
+     validation on the synthetic COCO set, each epoch's validation
+     returning (``train`` scores a failed one 0, as the reference does),
+     ``--resume`` to a third with the step count carried, ms a step;
+     ``--imagenet-backbone`` with a torchvision-named R50 .pth, the
+     backbone on the card equal to the file bit for bit; ``remat`` on one
+     R152 step of flowtrack_posetrack with, without and again without:
+     gradients and running statistics within 4x what the two runs without
+     differ by, every batch norm counted once, lower peak memory, ms a
+     step, forward and backward ms and one profiled step each (wall
+     against device busy); and the train-to-eval closed loop of
+     ``bench.py`` (R18 64x64, 60 epochs) through ``train``, AP above
+     max(0.3, AP before + 0.25).
 
 Phase 3 also holds the divisions by a constant on the slice's path (the
 recovery crops' centers and scales, the decode's inverse map, the flow's
@@ -2578,6 +2600,520 @@ in FlowNet2); FlowNetC's conv1 gradient
     return launches
 
 
+# -- the train_cli phase: the train CLIs through their own main ------------
+
+# train_flow's corpus: TRAIN_CLI_PAIRS FlyingChairs-style pairs and
+# TRAIN_CLI_VAL_PAIRS for validation at TRAIN_CLI_FLOW_HW, a smooth flow of
+# up to +-TRAIN_CLI_FLOW_PX px planted in each (the second frame is the first
+# warped by it), cropped to FLOW_TRAIN_HW; eval_flow on 3 frames of one such
+# flow; the closed loop's epochs; the timed R152 steps of the remat check
+TRAIN_CLI_PAIRS, TRAIN_CLI_VAL_PAIRS = 16, 8
+TRAIN_CLI_FLOW_HW, TRAIN_CLI_FLOW_PX = (384, 512), 6.0
+LOOP_EPOCHS, REMAT_TIMED_STEPS = 60, 3
+# remat: one R152 step's gradients and running statistics with remat may
+# differ from the step without by at most REMAT_REPEAT_FACTOR times what two
+# runs without differ by (cuDNN may choose other algorithms from one run to
+# the next); when those repeat bit for bit, the bound is 0
+REMAT_REPEAT_FACTOR = 4
+
+
+def _bilinear(img, x, y):
+    """(H, W, C) float32 ``img`` sampled at float coordinates, clamped."""
+    h, w = img.shape[:2]
+    x = np.clip(x, 0, w - 1.001)
+    y = np.clip(y, 0, h - 1.001)
+    x0, y0 = x.astype(np.int64), y.astype(np.int64)
+    fx, fy = (x - x0)[..., None], (y - y0)[..., None]
+    top = img[y0, x0] * (1 - fx) + img[y0, x0 + 1] * fx
+    bottom = img[y0 + 1, x0] * (1 - fx) + img[y0 + 1, x0 + 1] * fx
+    return top * (1 - fy) + bottom * fy
+
+
+def planted_flow_pair(rng, hw):
+    """A smooth random texture, a smooth flow (u, v) of up to
+    TRAIN_CLI_FLOW_PX px, and the texture moved by it: frame 2 at x + flow(x)
+    shows what frame 1 shows at x. -> (im1, im2) uint8, flow float32."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    coarse = rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2, 3)).astype(
+        np.float32)
+    im1 = _bilinear(coarse, xx / 8, yy / 8)
+    a = rng.uniform(-1, 1, (2, 3)) * TRAIN_CLI_FLOW_PX / 2
+    flow = np.stack([c[0] + c[1] * np.sin(2 * np.pi * yy / h + c[2])
+                     for c in a], axis=-1).astype(np.float32)
+    im2 = _bilinear(im1, xx - flow[..., 0], yy - flow[..., 1])
+    return (im1.round().astype(np.uint8), im2.round().astype(np.uint8),
+            flow)
+
+
+def write_flow_corpus(root, n, rng, save_image):
+    from flowtrack_tpu_torch.eval.flow_eval import write_flo
+
+    root.mkdir(parents=True)
+    for i in range(n):
+        im1, im2, flow = planted_flow_pair(rng, TRAIN_CLI_FLOW_HW)
+        save_image(str(root / f"{i:05d}_img1.png"), im1)
+        save_image(str(root / f"{i:05d}_img2.png"), im2)
+        write_flo(str(root / f"{i:05d}_flow.flo"), flow)
+    return str(root)
+
+
+def jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def flow_step_profile(tag, state, batch, div_flow, card_f):
+    """One flow_train_step under torch.profiler: the step's device ms, and
+    the device ms of K2's forward, K2's plain backward, the warp's forward
+    and plain backward, and the convolutions (forward and backward). A
+    backward's ms is the device time launched from its autograd node."""
+    from flowtrack_tpu_torch.engine.flow_train import flow_train_step
+
+    flow_train_step(state, batch, div_flow)
+    prof, wall_ms, device = profile_run(
+        f"train_cli_{tag}", lambda: flow_train_step(state, batch, div_flow))
+    by_key = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()}
+
+    def kernels(*names):
+        return sum(e.device_time_total for e in device
+                   if any(n in e.name for n in names)) / 1e3
+
+    def node(name):
+        return sum(v for k, v in by_key.items()
+                   if k.startswith("autograd::engine::evaluate_function")
+                   and k.endswith(name))
+
+    parts = {"step": sum(e.device_time_total for e in device) / 1e3,
+             "k2_forward": kernels("correlation_mma_kernel",
+                                   "correlation_kernel"),
+             "k2_backward_plain": node("_CorrelationBackward"),
+             "warp_forward": kernels("resample2d_kernel"),
+             "warp_backward_plain": node("_Resample2dBackward"),
+             "convolutions": by_key.get("aten::convolution", 0.0)
+             + by_key.get("aten::convolution_backward", 0.0)}
+    SUMMARY.setdefault("train_cli_step_device_ms", {})[tag] = {
+        k: round(v, 2) for k, v in parts.items()}
+    log("train_cli", check="step_profile", net=tag, wall_ms=wall_ms,
+        device_ms=parts, share_of_step={k: v / parts["step"] for k, v in
+                                        parts.items() if k != "step"},
+        card=card_f)
+    return parts
+
+
+def max_rel_diff(a, b):
+    """Largest of max |a - b| / max |b| over the tensors of ``b``."""
+    return max(float((a[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+               for k, v in b.items())
+
+
+def remat_step(tag, model_cfg, cfg, base, batch, dev, sync):
+    """A fresh pose net of ``model_cfg`` from the state dict ``base`` takes
+    one train step on ``batch``: its loss, gradients and batch norm buffers
+    (on the CPU) and the peak memory of that step; then its ms a step over
+    REMAT_TIMED_STEPS, one forward and one backward timed apart, and on the
+    card one step profiled (wall ms, device busy ms, device events)."""
+    from flowtrack_tpu_torch.engine.loss import joints_mse_loss
+    from flowtrack_tpu_torch.engine.train import create_train_state
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tools import train
+
+    on_card = dev.type == "cuda"
+    model = get_pose_net(model_cfg, dev)
+    model.load_state_dict(base)
+    state = create_train_state(model, cfg)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state, metrics = train.train_step(state, batch)
+    out = {"loss": float(metrics["loss"]),
+           "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if on_card else None),
+           "bn_counts": sorted({int(m.num_batches_tracked)
+                                for m in model.modules()
+                                if isinstance(m, torch.nn.BatchNorm2d)}),
+           "grads": {k: p.grad.float().cpu()
+                     for k, p in model.named_parameters()},
+           "stats": {k: b.float().cpu() for k, b in model.named_buffers()
+                     if not k.endswith("num_batches_tracked")}}
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_TIMED_STEPS):
+        state, metrics = train.train_step(state, batch)
+    sync()
+    out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED_STEPS
+    x = batch["input"].permute(0, 3, 1, 2).contiguous()
+    sync()
+    t0 = time.perf_counter()
+    hm = model.train()(x).permute(0, 2, 3, 1)
+    sync()
+    t1 = time.perf_counter()
+    joints_mse_loss(hm, batch["target"], batch["target_weight"]).backward()
+    sync()
+    out["forward_ms"] = (t1 - t0) * 1e3
+    out["backward_ms"] = (time.perf_counter() - t1) * 1e3
+    del hm
+    if on_card:
+        _, wall_ms, device = profile_run(
+            f"train_cli_{tag}", lambda: train.train_step(state, batch))
+        busy_ms = sum(e.device_time_total for e in device) / 1e3
+        out["profiled"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                           "idle": 1 - busy_ms / wall_ms,
+                           "device_events": len(device)}
+    return out
+
+
+def phase_train_cli(card, dev=None):
+    """The train CLIs as a user starts them, through their own ``main``,
+    the launch counts read around each run. ``train_flow``: FlowNetC at the
+    320x448 crop, batch 8, bf16, 2 epochs with validation and checkpoints
+    (K2 launched, val_epe finite each epoch), ``--resume`` to a third, the
+    saved .npz through ``eval_flow`` (K2 launched), one step profiled; the
+    FlowNet2 variant one epoch (K2 and the warp launched, finite). ``train``:
+    coco_res50_256x192 (R50 256x192, batch 32, bf16) 2 epochs with
+    validation returning each epoch, ``--resume`` to a third, the step
+    count carried; ``--imagenet-backbone`` with a torchvision-named .pth:
+    the backbone on the card equal to the file bit for bit, the head the
+    CLI's own init. ``remat``: one R152 step of flowtrack_posetrack with
+    and without (``remat_step``), gradients and running statistics held to
+    the repeat of the step without, every batch norm counted once. The
+    closed loop of ``bench.py`` (R18 64x64, 60 epochs) through ``train``:
+    AP > max(0.3, AP before + 0.25). Returns the CLI runs' launch counts."""
+    import argparse
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from flowtrack_tpu_torch.config import apply_overrides, get_config
+    from flowtrack_tpu_torch.data.flow_dataset import (FlowPairDataset,
+                                                       flow_batches)
+    from flowtrack_tpu_torch.eval.flow_eval import write_flo
+    from flowtrack_tpu_torch.models.flownet import preprocess_pair
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tools import eval_flow, train, train_flow
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card_f = f"'{card}'"
+    counters = kernel_counters()
+    total = dict.fromkeys(counters, 0)
+    fixtures = coco_fixture()
+    rng = np.random.default_rng(SEED + 11)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        chairs = write_flow_corpus(tmp / "chairs", TRAIN_CLI_PAIRS, rng,
+                                   fixtures.save_image)
+        chairs_val = write_flow_corpus(tmp / "chairs_val",
+                                       TRAIN_CLI_VAL_PAIRS, rng,
+                                       fixtures.save_image)
+        log("train_cli", setup_s=time.perf_counter() - t0,
+            pairs=TRAIN_CLI_PAIRS, val_pairs=TRAIN_CLI_VAL_PAIRS,
+            frame_hw="x".join(map(str, TRAIN_CLI_FLOW_HW)))
+
+        # -- train_flow, FlowNetC: 2 epochs, then --resume to 3
+        h, w = FLOW_TRAIN_HW
+        npz = str(tmp / "flownet_c.npz")
+        args = ["--cfg", "flownet_c", "--triplets", chairs, "--val-triplets",
+                chairs_val, "--crop", str(h), str(w), "--batch",
+                str(FLOW_TRAIN_BATCH), "--ckpt-dir", str(tmp / "flow_ckpt"),
+                "--out", npz, "--device", dev.type]
+        require(get_config("flownet_c").flow.dtype == "bfloat16",
+                "flownet_c trains in bf16")
+        steps = -(-TRAIN_CLI_PAIRS // FLOW_TRAIN_BATCH)
+        state, launches, seconds = run_cli(train_flow.main, args + [
+            "--epochs", "2"], counters, total)
+        lines = jsonl(tmp / "flow_ckpt" / "metrics.jsonl")
+        require(launches["correlation"] > 0,
+                f"train_flow: K2 never launched: {launches}")
+        require(len(lines) == 2 and all(np.isfinite(x["val_epe"])
+                                        for x in lines),
+                f"train_flow: {lines}")
+        require(state.step == 2 * steps, f"train_flow: step {state.step}")
+        log("train_cli", cli="train_flow", net="flownet_c", epochs=2,
+            steps=state.step, seconds=seconds, launches=launches,
+            epe=[x["epe"] for x in lines],
+            val_epe=[x["val_epe"] for x in lines], card=card_f)
+        data = FlowPairDataset(root=chairs, crop_size=(h, w), is_train=True)
+        b = next(flow_batches(data, FLOW_TRAIN_BATCH, seed=0))
+        im1, im2, flow = (torch.as_tensor(b[k], device=dev)
+                          for k in ("im1", "im2", "flow"))
+        fbatch = {"input": preprocess_pair(im1, im2), "flow": flow}
+        if on_card:
+            flow_step_profile("flownet_c", state, fbatch,
+                              get_config("flownet_c").flow.div_flow, card_f)
+        del state
+        state, launches, seconds = run_cli(train_flow.main, args + [
+            "--epochs", "3", "--resume"], counters, total)
+        lines = jsonl(tmp / "flow_ckpt" / "metrics.jsonl")
+        require([x["step"] for x in lines] == [0, 1, 2]
+                and state.step == 3 * steps,
+                f"train_flow --resume: epochs {[x['step'] for x in lines]}, "
+                f"step {state.step}")
+        log("train_cli", cli="train_flow", resume=True, epochs_run=1,
+            steps=state.step, seconds=seconds, launches=launches,
+            val_epe=lines[-1]["val_epe"], card=card_f)
+        del state
+
+        # -- eval_flow on the saved .npz
+        frames, flo = tmp / "eval_frames", tmp / "eval_flo"
+        frames.mkdir()
+        flo.mkdir()
+        im1, im2, flow = planted_flow_pair(rng, TRAIN_CLI_FLOW_HW)
+        for t, im in enumerate((im1, im2, im1)):
+            fixtures.save_image(str(frames / f"{t:06d}.png"), im)
+        write_flo(str(flo / "000000.flo"), flow)
+        write_flo(str(flo / "000001.flo"), -flow)
+        out, launches, seconds = run_cli(eval_flow.main, [
+            "--cfg", "flownet_c", "--weights", npz, "--frames", str(frames),
+            "--gt-flow", str(flo), "--device", dev.type], counters, total)
+        require(launches["correlation"] > 0,
+                f"eval_flow: K2 never launched: {launches}")
+        require(out["n_frames"] == 2 and np.isfinite(out["epe"]),
+                f"eval_flow: {out}")
+        log("train_cli", cli="eval_flow", weights="train_flow's .npz",
+            epe=out["epe"], seconds=seconds, launches=launches, card=card_f)
+
+        # -- train_flow, the FlowNet2 variant: 1 epoch. The corpus's smooth
+        # frames hold pixels equal in both frames, whose brightness error
+        # is 0: the channel norm's gradient there must stay finite
+        npz2 = str(tmp / "fn2" / "flownet2.npz")
+        (tmp / "fn2").mkdir()
+        state, launches, seconds = run_cli(train_flow.main, [
+            "--cfg", "flownet_c", "--triplets", chairs, "--crop", str(h),
+            str(w), "--batch", str(FLOW_TRAIN_BATCH), "--epochs", "1",
+            "--out", npz2, "--device", dev.type, "flow.variant=flownet2"],
+            counters, total)
+        lines = jsonl(tmp / "fn2" / "metrics.jsonl")
+        with np.load(npz2) as f:
+            finite = all(np.isfinite(f[k]).all() for k in f.files)
+            n_arrays = len(f.files)
+        require(launches["correlation"] > 0 and launches["resample2d"] > 0,
+                f"train_flow flownet2: K2 or the warp never launched: "
+                f"{launches}")
+        require(np.isfinite(lines[0]["epe"]) and finite,
+                f"train_flow flownet2: epe {lines}, weights finite {finite}")
+        log("train_cli", cli="train_flow", net="flownet2", epochs=1,
+            steps=state.step, seconds=seconds, launches=launches,
+            epe=lines[0]["epe"], saved_arrays=n_arrays, card=card_f)
+        if on_card:
+            flow_step_profile("flownet2", state, fbatch,
+                              get_config("flownet_c").flow.div_flow, card_f)
+        del state, fbatch
+
+        # -- train: R50 256x192, batch 32, bf16, 2 epochs, then --resume
+        cfg = get_config("coco_res50_256x192")
+        require(cfg.model.dtype == "bfloat16" and cfg.train.batch_size == 32,
+                "coco_res50_256x192 trains R50 bf16 at batch 32")
+        coco_root, _, _ = fixtures.make_coco_fixture(
+            tmp / "coco", n_images=TRAIN_POSE_IMAGES, persons=2)
+        def pose_args(out, *extra):
+            return ["--cfg", "coco_res50_256x192", "--device", dev.type,
+                    "--out", str(tmp / out), *extra,
+                    f"data.root={coco_root}", "data.train_set=val2017",
+                    "test.use_gt_bbox=true", "train.print_freq=100"]
+
+        steps = TRAIN_POSE_IMAGES * 2 // cfg.train.batch_size
+        spent, validated = [], []
+        step_fn, validate_fn = train.train_step, train.run_validation
+
+        def timed_step(*a, **k):
+            sync()
+            t = time.perf_counter()
+            out = step_fn(*a, **k)
+            sync()
+            spent.append(time.perf_counter() - t)
+            return out
+
+        def counted_validation(*a, **k):
+            # main catches a failed validation and scores it 0, as the
+            # reference does; only a return lands here
+            stats = validate_fn(*a, **k)
+            validated.append(stats["AP"])
+            return stats
+
+        train.train_step = timed_step
+        train.run_validation = counted_validation
+        try:
+            state, launches, seconds = run_cli(train.main, pose_args(
+                "pose", "train.end_epoch=2"), counters, total)
+            validations, first_spent = len(validated), spent[:]
+            lines = jsonl(tmp / "pose" / "metrics.jsonl")
+            state_resumed, _, resume_s = run_cli(train.main, pose_args(
+                "pose", "--resume", "train.end_epoch=3"), counters, total)
+        finally:
+            train.train_step, train.run_validation = step_fn, validate_fn
+        require(validations == 2 and len(validated) == 3
+                and np.isfinite(validated).all(),
+                f"train: validation returned {validations} of 2 times, then "
+                f"{len(validated) - validations} of 1 after --resume: "
+                f"{validated}")
+        keys = {"step", "time", "train_loss", "train_acc", "val_perf",
+                "best_perf", "lr"}
+        require(len(lines) == 2 and all(set(x) == keys
+                                        and np.isfinite(x["val_perf"])
+                                        and np.isfinite(x["train_loss"])
+                                        for x in lines),
+                f"train: metrics {lines}")
+        require(state.step == 2 * steps, f"train: step {state.step}")
+        # the first step of the run is the warm-up (cuDNN's choices)
+        step_ms = float(np.mean(first_spent[1:])) * 1e3
+        SUMMARY["train_cli_pose_ms_per_step"] = round(step_ms, 2)
+        log("train_cli", cli="train", net="pose_resnet50",
+            crop="x".join(map(str, cfg.model.image_size)),
+            batch=cfg.train.batch_size, dtype=cfg.model.dtype, epochs=2,
+            steps=state.step, seconds=seconds, ms_per_step=step_ms,
+            samples_per_s=cfg.train.batch_size * 1e3 / step_ms,
+            train_loss=[x["train_loss"] for x in lines],
+            val_perf=[x["val_perf"] for x in lines],
+            validations_returned=validations, launches=launches,
+            card=card_f)
+        state = state_resumed
+        lines = jsonl(tmp / "pose" / "metrics.jsonl")
+        require([x["step"] for x in lines] == [0, 1, 2]
+                and state.step == 3 * steps,
+                f"train --resume: epochs {[x['step'] for x in lines]}, "
+                f"step {state.step}")
+        log("train_cli", cli="train", resume=True, epochs_run=1,
+            steps=state.step, seconds=resume_s,
+            validations_returned=len(validated) - validations, card=card_f)
+        del state, state_resumed
+
+        # -- train --imagenet-backbone: a torchvision-named R50 .pth
+        gen = torch.Generator().manual_seed(SEED + 5)
+        source = get_pose_net(cfg.model, None, gen).state_dict()
+        head = ("deconv_layers", "final_layer")
+        sd = {k: v for k, v in source.items() if not k.startswith(head)}
+        sd["fc.weight"] = torch.randn(1000, 2048, generator=gen)
+        sd["fc.bias"] = torch.zeros(1000)
+        torch.save(sd, tmp / "r50_imagenet.pth")
+        state, _, _ = run_cli(train.main, pose_args(
+            "bb", "--imagenet-backbone", str(tmp / "r50_imagenet.pth"),
+            "train.end_epoch=0"), counters, total)
+        own = state.model.state_dict()
+        fresh = get_pose_net(cfg.model, generator=torch.Generator()
+                             .manual_seed(cfg.train.seed)).state_dict()
+        backbone = [k for k in own if not k.startswith(head)]
+        require(all(own[k].device.type == dev.type for k in own),
+                "--imagenet-backbone: the net is not on the device")
+        require(all(torch.equal(own[k].cpu(), sd[k]) for k in backbone
+                    if not k.endswith("num_batches_tracked")),
+                "--imagenet-backbone: the backbone differs from the file")
+        heads = [k for k in own if k.startswith(head)]
+        require(all(torch.equal(own[k].cpu(), fresh[k]) for k in heads)
+                and not all(torch.equal(own[k].cpu(), source[k])
+                            for k in heads),
+                "--imagenet-backbone: the head is not the CLI's own init")
+        log("train_cli", cli="train", imagenet_backbone="bitwise",
+            backbone_tensors=len(backbone), head_tensors=len(heads),
+            card=card_f)
+        del state, own
+
+        # -- remat: one R152 step (flowtrack_posetrack) without, again
+        # without (the repeat sets the tolerance), and with
+        rcfg = get_config("flowtrack_posetrack")
+        n = rcfg.train.batch_size
+        require(rcfg.model.num_layers == 152 and rcfg.model.dtype ==
+                "bfloat16" and n == 32,
+                "flowtrack_posetrack trains R152 bf16 at batch 32")
+        base = get_pose_net(rcfg.model, None, gen).state_dict()
+        hh, hw = rcfg.model.heatmap_size
+        batch = {"input": torch.as_tensor(rng.normal(
+                     0, 1, (n, *rcfg.model.image_size, 3)),
+                     dtype=torch.float32, device=dev),
+                 "target": torch.as_tensor(rng.uniform(
+                     0, 1, (n, hh, hw, 17)), dtype=torch.float32, device=dev),
+                 "target_weight": torch.ones(n, 17, device=dev)}
+        remat = {tag: remat_step(tag, replace(rcfg.model, remat=on), rcfg,
+                                 base, batch, dev, sync)
+                 for tag, on in (("plain", False), ("repeat", False),
+                                 ("remat", True))}
+        plain = remat["plain"]
+        diffs = {tag: {"loss": abs(r["loss"] - plain["loss"]),
+                       "grads": max_rel_diff(r["grads"], plain["grads"]),
+                       "running_stats": max_rel_diff(r["stats"],
+                                                     plain["stats"])}
+                 for tag, r in remat.items() if tag != "plain"}
+        tol = {k: REMAT_REPEAT_FACTOR * v for k, v in diffs["repeat"].items()}
+        for tag, r in remat.items():
+            require(r["bn_counts"] == [1],
+                    f"{tag}: num_batches_tracked after one step "
+                    f"{r['bn_counts']}")
+        require(all(diffs["remat"][k] <= tol[k] for k in tol),
+                f"remat: differs from the step without by {diffs['remat']}, "
+                f"two steps without by {diffs['repeat']}")
+        require(not on_card or remat["remat"]["peak_gb"]
+                < plain["peak_gb"],
+                f"remat did not lower the peak memory: "
+                f"{remat['remat']['peak_gb']} against {plain['peak_gb']}")
+        # the batch norms' guard in the recomputation is host work alone:
+        # its time on the host, a block at a time
+        from flowtrack_tpu_torch.models.pose_resnet import (
+            Bottleneck, _running_stats_kept)
+        block = Bottleneck(1024, 256, downsample=True)
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            with _running_stats_kept(block):
+                pass
+        guard_us = (time.perf_counter() - t0) * 1e3
+        blocks = sum(1 for m in get_pose_net(rcfg.model).modules()
+                     if isinstance(m, Bottleneck))
+        SUMMARY["train_cli_remat_peak_gb_ms"] = {
+            tag: (r["peak_gb"] and round(r["peak_gb"], 2),
+                  round(r["ms_per_step"], 2))
+            for tag, r in remat.items() if tag != "repeat"}
+        log("train_cli", check="remat", net="pose_resnet152",
+            crop="x".join(map(str, rcfg.model.image_size)), batch=n,
+            dtype=rcfg.model.dtype,
+            **{tag: {k: v for k, v in r.items() if k not in
+                     ("grads", "stats")} for tag, r in remat.items()},
+            diff_remat=diffs["remat"], diff_repeat=diffs["repeat"], tol=tol,
+            bn_guard_us_per_block=guard_us, blocks=blocks, card=card_f)
+        del batch, base, remat, plain
+
+        # -- the train-to-eval closed loop through the train CLI
+        loop_root, _, _ = fixtures.make_coco_fixture(tmp / "loop",
+                                                     n_images=4, persons=2)
+        opts = ["model.num_layers=18", "model.image_size=64,64",
+                "model.heatmap_size=16,16", "model.sigma=1.5",
+                "model.dtype=float32", "train.batch_size=8", "train.lr=2e-3",
+                "train.flip_prob=0", "train.rot_factor=0",
+                "train.scale_factor=0", f"train.end_epoch={LOOP_EPOCHS}",
+                "train.print_freq=1000", "test.batch_size=8",
+                "test.use_gt_bbox=true", "test.flip_test=false",
+                f"data.root={loop_root}", "data.train_set=val2017",
+                "data.test_set=val2017"]
+        lcfg = apply_overrides(get_config("coco_res50_256x192"), opts)
+        start = train.initial_model(argparse.Namespace(
+            init_weights=None, imagenet_backbone=None), lcfg)
+        with contextlib.redirect_stdout(io.StringIO()):
+            ap_before = train.run_validation(lcfg, start, device=dev)["AP"]
+        state, launches, seconds = run_cli(train.main, [
+            "--cfg", "coco_res50_256x192", "--out", str(tmp / "loop_ckpt"),
+            "--device", dev.type, *opts], counters, total)
+        lines = jsonl(tmp / "loop_ckpt" / "metrics.jsonl")
+        ap_after = lines[-1]["val_perf"]
+        require(len(lines) == LOOP_EPOCHS
+                and ap_after > max(0.3, ap_before + 0.25),
+                f"closed loop: AP {ap_before} -> {ap_after} after "
+                f"{len(lines)} epochs")
+        SUMMARY["train_cli_closed_loop_ap"] = (round(ap_before, 4),
+                                               round(ap_after, 4))
+        log("train_cli", metric="coco_ap_train_to_eval_closed_loop_on_device",
+            value=round(ap_after, 4), ap_before=round(ap_before, 4),
+            unit=f"AP after {LOOP_EPOCHS} epochs on the synthetic fixture",
+            platform=dev.type, final_loss=round(lines[-1]["train_loss"], 6),
+            train_seconds=round(seconds, 1), card=card_f)
+        del state
+    SUMMARY["train_cli_phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("train_cli", phase_s=time.perf_counter() - t_phase, launches=total,
+        card=card_f)
+    return total
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -2602,8 +3138,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(card)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    train_cli = phase_train_cli(card)
+    torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
-               "eval": eval_, "serving": serving, "train": train}
+               "eval": eval_, "serving": serving, "train": train,
+               "train_cli": train_cli}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]

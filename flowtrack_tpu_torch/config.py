@@ -52,7 +52,8 @@ class ModelConfig:
     deconv_with_bias: bool = False
     sigma: float = 2.0                        # GT gaussian sigma
     dtype: str = "bfloat16"                   # compute dtype
-    remat: bool = False                       # not ported: no effect here
+    remat: bool = False                       # recompute each residual
+                                              # block in the backward
 
 
 @dataclass(frozen=True)

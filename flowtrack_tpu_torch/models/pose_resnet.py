@@ -10,12 +10,20 @@ NCHW in, NCHW float32 heatmaps out. Module names are the lineage's
 state-dict names (conv1, bn1, layerL.B.*, deconv_layers.N, final_layer), so
 the reference's weights load through ``torch_convert.reverse_pose_resnet``
 with ``strict=True`` (utils/convert.py).
+
+``cfg.remat`` is the reference's ``nn.remat`` of each residual block
+(pose_resnet.py:102-103): in train mode with gradients on, each block runs
+under ``torch.utils.checkpoint``, so its activations are recomputed in the
+backward instead of kept, and the numbers do not change.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from flowtrack_tpu_torch.config import ModelConfig
 from flowtrack_tpu_torch.models.layers import (
@@ -89,6 +97,40 @@ class Bottleneck(nn.Module):
         return self.relu(y + residual)
 
 
+@contextlib.contextmanager
+def _running_stats_kept(block: nn.Module):
+    """The recomputation of a checkpointed block runs its batch norms'
+    train-mode forward a second time; inside this context it leaves their
+    buffers as they are, so running mean, variance and
+    ``num_batches_tracked`` are updated once, by the first run, as the
+    reference's ``nn.remat`` updates ``batch_stats`` once. Momentum 0 makes
+    the running update ``1 * running + 0 * batch``, which is ``running``
+    bit for bit; ``num_batches_tracked`` set to None skips its increment.
+    Both are attribute flips on the host: no device work, and the batch
+    norm kernels and the tensors they save for the backward are those of
+    the first run. The outputs do not depend on the buffers: train mode
+    normalises by the batch's own statistics. The flips write the module's
+    attribute and buffer dicts directly: ``nn.Module.__setattr__`` takes
+    ~10 us a call, and a step of R152 makes 600 of them."""
+    norms = [m for m in block.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(m.momentum, m.num_batches_tracked) for m in norms]
+    for m in norms:
+        vars(m)["momentum"] = 0.0
+        m._buffers["num_batches_tracked"] = None
+    try:
+        yield
+    finally:
+        for m, (momentum, tracked) in zip(norms, saved):
+            vars(m)["momentum"] = momentum
+            m._buffers["num_batches_tracked"] = tracked
+
+
+def _remat(block: nn.Module, x):
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _running_stats_kept(block)))
+
+
 class PoseResNet(nn.Module):
     """backbone -> deconv head -> heatmaps. ``forward``: (N, 3, H, W)
     -> (N, num_joints, H/4, W/4) float32. The backbone's modules sit at the
@@ -97,6 +139,7 @@ class PoseResNet(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.dtype = torch_dtype(cfg.dtype)
+        self.remat = cfg.remat
         apply_precision_policy(self.dtype)
         kind, stages = RESNET_SPECS[cfg.num_layers]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
@@ -132,9 +175,15 @@ class PoseResNet(nn.Module):
                                      (k - 1) // 2, device=device)
 
     def forward(self, x):
+        layers = (self.layer1, self.layer2, self.layer3, self.layer4)
         with compute_context(x, self.dtype):
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            if self.remat and self.training and torch.is_grad_enabled():
+                for block in (b for layer in layers for b in layer):
+                    x = _remat(block, x)
+            else:
+                for layer in layers:
+                    x = layer(x)
             x = self.final_layer(self.deconv_layers(x))
         return x.float()
 

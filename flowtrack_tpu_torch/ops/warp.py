@@ -11,7 +11,12 @@ Port of ``flowtrack_tpu/ops/warp.py``:
   a TPU has no gather; on the GPU a gather is the natural form, so one kernel
   serves both ``pallas_warp_impl`` names, held to K4's contract (the XLA
   path's value, bitwise at integer flows).
-* ``channelnorm`` (:549) is a plain float32 reduction, as in the reference.
+* ``channelnorm`` (:549) is a plain float32 reduction, as in the reference,
+  but for its gradient at a zero norm: the reference's is NaN there (the
+  square root's derivative at 0 times 0), which a brightness error of
+  exactly 0, one pixel of two frames equal in every channel, puts into
+  every FlowNet2 weight under it; the port's is 0 there, as the lineage's
+  ChannelNorm backward gives (it divides by the norm plus 1e-9).
 * ``flow_gather`` and ``_bilinear_sample_points`` (:555-590), the tracker's
   joint propagation primitive.
 
@@ -206,8 +211,13 @@ def resample2d(img, flow):
 
 def channelnorm(x, eps: float = 0.0, dim: int = -1):
     """L2 norm over the channel axis ``dim`` in float32, kept as a size-1
-    axis: (N, H, W, C) -> (N, H, W, 1) by default."""
-    return torch.sqrt(x.float().square().sum(dim, keepdim=True) + eps)
+    axis: (N, H, W, C) -> (N, H, W, 1) by default. Where the norm is 0 its
+    gradient is 0, not NaN; elsewhere the values and gradients are the
+    square root's."""
+    s = x.float().square().sum(dim, keepdim=True) + eps
+    nonzero = s > 0
+    return torch.where(nonzero, torch.sqrt(torch.where(nonzero, s, 1.0)),
+                       0.0)
 
 
 def _bilinear_sample_points(img, sx, sy):

@@ -19,7 +19,8 @@ from flowtrack_tpu_torch.config import Config
 from flowtrack_tpu_torch.engine.checkpoint import load_npz_variables
 from flowtrack_tpu_torch.models.flownet import get_flow_net
 from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
-from flowtrack_tpu_torch.utils.convert import (load_flownet, load_flownet2,
+from flowtrack_tpu_torch.utils.convert import (load_flow_tree,
+                                               load_lineage_state_dict,
                                                load_pose_resnet)
 
 
@@ -37,12 +38,10 @@ def load_torch_state_dict(module: torch.nn.Module, path: str):
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
-    sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    missing, unexpected = module.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise KeyError(f"{path}: missing {missing}, unexpected {unexpected}")
-    return module
+    try:
+        return load_lineage_state_dict(module, sd)
+    except KeyError as e:
+        raise KeyError(f"{path}: {e.args[0]}") from None
 
 
 def pose_net(cfg: Config, path: str) -> torch.nn.Module:
@@ -59,7 +58,6 @@ def flow_net(cfg: Config, path: str) -> torch.nn.Module:
     ``path``."""
     model = get_flow_net(cfg.flow)
     if path.endswith(".npz"):
-        load = (load_flownet2 if cfg.flow.variant.startswith("flownet2")
-                else load_flownet)
-        return load(model, load_npz_variables(path)).eval()
+        return load_flow_tree(model, load_npz_variables(path),
+                              cfg.flow.variant).eval()
     return load_torch_state_dict(model, path).eval()

@@ -13,6 +13,12 @@ pin them to the reference's. The other way, ``convert_pose_resnet`` and the
 ignored) -> the reference's tree, which the reference loads.
 ``named_parameters_from_tree`` maps a tree shaped like ``params`` (the
 reference's gradients, Adam moments) onto the port's parameter names.
+The ImageNet init (torch_convert.py:27, :122-185): ``load_torch_file``,
+``convert_resnet_backbone``, ``overlay_variables``, ``overlay_backbone``
+and ``init_backbone_from_imagenet`` as the reference has them, the last
+also loading a torchvision state dict straight into the port's module
+(whose names are torchvision's); ``load_backbone_tree`` loads a converted
+backbone tree.
 
 Layouts: the reference's conv kernels are HWIO, torch's Conv2d weights
 (Cout, Cin, kH, kW); its deconv kernels are spatially flipped HWIO (an
@@ -22,7 +28,7 @@ input-dilated conv), torch's ConvTranspose2d weights (Cin, Cout, kH, kW).
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -50,12 +56,11 @@ def _bn_to_torch(sd: dict, torch_prefix: str, pnode: dict, snode: dict):
     sd[torch_prefix + ".num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def reverse_pose_resnet(variables: dict) -> Dict[str, np.ndarray]:
-    """PoseResNet variables -> torch state dict (lineage naming:
-    conv1/bn1/layerL.B.*/deconv_layers.{3i}/final_layer)."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    bb, bbs = params["backbone"], stats.get("backbone", {})
+def _reverse_backbone(variables: dict) -> Dict[str, np.ndarray]:
+    """The ``backbone`` subtrees of ``variables`` -> torch state dict
+    entries (conv1, bn1, layerL.B.*)."""
+    bb = variables["params"]["backbone"]
+    bbs = variables.get("batch_stats", {}).get("backbone", {})
     sd: Dict[str, np.ndarray] = {}
     sd["conv1.weight"] = conv_kernel_to_torch(bb["conv1"]["kernel"])
     _bn_to_torch(sd, "bn1", bb["bn1"], bbs["bn1"])
@@ -77,6 +82,15 @@ def reverse_pose_resnet(variables: dict) -> Dict[str, np.ndarray]:
                 blk["downsample_conv"]["kernel"])
             _bn_to_torch(sd, f"{tp}.downsample.1", blk["downsample_bn"],
                          blks["downsample_bn"])
+    return sd
+
+
+def reverse_pose_resnet(variables: dict) -> Dict[str, np.ndarray]:
+    """PoseResNet variables -> torch state dict (lineage naming:
+    conv1/bn1/layerL.B.*/deconv_layers.{3i}/final_layer)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = _reverse_backbone(variables)
     i = 0
     while f"deconv{i}" in params:
         node = params[f"deconv{i}"]
@@ -182,6 +196,19 @@ def _load(module: nn.Module, sd) -> nn.Module:
     return module
 
 
+def load_lineage_state_dict(module: nn.Module, sd) -> nn.Module:
+    """A state dict in the lineage's names (tensors or numpy arrays,
+    ``module.`` prefixes allowed) -> ``module`` (in place). Every tensor
+    must match a name of the module, and every name be given but a
+    ``num_batches_tracked`` (older torch has none)."""
+    sd = {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
+    missing, unexpected = module.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"missing {missing}, unexpected {unexpected}")
+    return module
+
+
 def load_pose_resnet(module: nn.Module, variables) -> nn.Module:
     """Reference PoseResNet variables -> the port's PoseResNet (in place)."""
     return _load(module, reverse_pose_resnet(variables))
@@ -243,11 +270,9 @@ def _bn(params, stats, path, prefix, sd):
     _set(stats, path + ("var",), sd[prefix + ".running_var"])
 
 
-def convert_pose_resnet(sd, num_deconv_layers: int = 3) -> dict:
-    """PoseResNet state dict -> the reference's {"params", "batch_stats"}."""
-    sd = state_dict_to_numpy(sd)
-    params: dict = {}
-    stats: dict = {}
+def _convert_backbone(sd, params: dict, stats: dict) -> None:
+    """conv1, bn1 and layerL.B.* of a numpy state dict -> the ``backbone``
+    subtrees of ``params`` and ``stats``; other keys are not read."""
     b = ("backbone",)
     _set(params, b + ("conv1", "kernel"), conv_kernel(sd["conv1.weight"]))
     _bn(params, stats, b + ("bn1",), "bn1", sd)
@@ -267,6 +292,14 @@ def convert_pose_resnet(sd, num_deconv_layers: int = 3) -> dict:
                  conv_kernel(sd[f"{tp}.downsample.0.weight"]))
             _bn(params, stats, blk + ("downsample_bn",),
                 f"{tp}.downsample.1", sd)
+
+
+def convert_pose_resnet(sd, num_deconv_layers: int = 3) -> dict:
+    """PoseResNet state dict -> the reference's {"params", "batch_stats"}."""
+    sd = state_dict_to_numpy(sd)
+    params: dict = {}
+    stats: dict = {}
+    _convert_backbone(sd, params, stats)
     for i in range(num_deconv_layers):
         _set(params, (f"deconv{i}", "kernel"),
              deconv_kernel(sd[f"deconv_layers.{3 * i}.weight"]))
@@ -356,6 +389,122 @@ def convert_flownet2(sd) -> dict:
         if s:
             stats[sub] = s
     return _flownet_tree(params, stats)
+
+
+# FlowNet2-CS / CSS state dicts hold a subset of the sub-nets, which
+# convert_flownet2 skips when absent
+convert_flownet2_cs = convert_flownet2
+convert_flownet2_css = convert_flownet2
+
+
+class FlowConverter(NamedTuple):
+    """A flow variant's weight converters: ``convert``, the port's state
+    dict -> the reference's tree; ``reverse``, the tree -> a state dict."""
+    convert: Callable
+    reverse: Callable
+
+
+# FlowConfig.variant -> its converters: train_flow, export_weights, the zoo
+# and the CLIs' weight loading all look a variant up here
+FLOW_CONVERTERS = {
+    "flownet_s": FlowConverter(convert_flownet_s, reverse_flownet),
+    "flownet_c": FlowConverter(convert_flownet_c, reverse_flownet),
+    "flownet_sd": FlowConverter(convert_flownet_sd, reverse_flownet),
+    "flownet2": FlowConverter(convert_flownet2, reverse_flownet2),
+    "flownet2_cs": FlowConverter(convert_flownet2_cs, reverse_flownet2),
+    "flownet2_css": FlowConverter(convert_flownet2_css, reverse_flownet2),
+}
+
+
+def load_flow_tree(module: nn.Module, variables, variant: str) -> nn.Module:
+    """Reference variables of flow ``variant`` -> the port's flow net of
+    that variant (in place)."""
+    return _load(module, FLOW_CONVERTERS[variant].reverse(variables))
+
+
+# ---------------------------------------------------------------------------
+# ImageNet backbone init (torch_convert.py:27, :122-185)
+# ---------------------------------------------------------------------------
+
+def load_torch_file(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint (a state dict, optionally wrapped in
+    ``{"state_dict": ...}`` and with ``module.`` prefixes) -> {name: numpy
+    copy}."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return state_dict_to_numpy({k.removeprefix("module."): v
+                                for k, v in sd.items()})
+
+
+def convert_resnet_backbone(sd) -> dict:
+    """A torchvision-named ResNet state dict (conv1, bn1, layerL.B.*; fc
+    ignored) -> the reference's ``backbone`` params and batch_stats
+    subtrees."""
+    params: dict = {}
+    stats: dict = {}
+    _convert_backbone(state_dict_to_numpy(sd), params, stats)
+    return {"params": params, "batch_stats": stats}
+
+
+def overlay_variables(dst: dict, src: dict) -> dict:
+    """``dst`` with every leaf that the (partial) tree ``src`` holds
+    replaced by ``src``'s."""
+    out = dict(dst)
+    for k, v in src.items():
+        out[k] = overlay_variables(dst[k], v) if isinstance(v, dict) else v
+    return out
+
+
+def overlay_backbone(variables: dict, conv: dict) -> dict:
+    """A converted backbone tree (``convert_resnet_backbone``'s, or its
+    .npz) over full PoseResNet variables; the head keeps its values."""
+    out = dict(variables)
+    out["params"] = overlay_variables(
+        variables["params"], {"backbone": conv["params"]["backbone"]})
+    out["batch_stats"] = overlay_variables(
+        variables.get("batch_stats", {}),
+        {"backbone": conv["batch_stats"]["backbone"]})
+    return out
+
+
+def _load_backbone(model: nn.Module, sd: Dict[str, np.ndarray]) -> nn.Module:
+    """Copy ``sd``'s tensors into ``model`` (in place). Every key must
+    name a backbone tensor of the model (conv1, bn1, layerL.B.*) and every
+    backbone weight and statistic must be given (a missing
+    ``num_batches_tracked`` keeps the model's); the head is not touched."""
+    own = model.state_dict()
+    backbone = {k for k in own if k.startswith(("conv1.", "bn1.", "layer"))}
+    unknown = sorted(set(sd) - backbone)
+    missing = sorted(k for k in backbone - set(sd)
+                     if not k.endswith("num_batches_tracked"))
+    if unknown or missing:
+        raise KeyError(f"backbone: unknown {unknown}, missing {missing}")
+    with torch.no_grad():
+        for k, v in sd.items():
+            own[k].copy_(torch.as_tensor(np.asarray(v)))
+    return model
+
+
+def init_backbone_from_imagenet(target, sd):
+    """ImageNet weights (a torchvision-named ResNet state dict; ``fc.*``
+    ignored) over a fresh PoseResNet; the head keeps its init. ``target``:
+    the port's module, loaded in place and returned, or the reference's
+    variable tree, returned overlaid as the reference's function does."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items()
+          if not k.removeprefix("module.").startswith("fc.")}
+    if isinstance(target, nn.Module):
+        return _load_backbone(target, state_dict_to_numpy(sd))
+    return overlay_backbone(target, convert_resnet_backbone(sd))
+
+
+def load_backbone_tree(model: nn.Module, conv: dict) -> nn.Module:
+    """A converted backbone tree (``convert_resnet_backbone``'s, as
+    ``tools/export_weights.py --kind backbone_imagenet`` writes it) ->
+    ``model``'s backbone (in place); the head keeps its init."""
+    sd = _reverse_backbone(conv)
+    return _load_backbone(model, {k: v for k, v in sd.items()
+                                  if not k.endswith("num_batches_tracked")})
 
 
 def _stats_like(params: dict) -> dict:
