@@ -9,7 +9,10 @@ at 256x192 with FlowNetC; slice 2, the paper's full pipeline
 (experiments/flowtrack_posetrack_flownet2.yaml), PoseResNet-152 at 256x192
 with the FlowNet2 cascade; slice 3, the BN-folded fused backbone
 (``BENCH_FUSED=1 python bench.py``): the coco_res50_256x192 config as it
-stands, PoseResNet-50 folded into ``FusedPoseResNet`` with FlowNetS; and
+stands, PoseResNet-50 folded into ``FusedPoseResNet`` with FlowNetS; the
+int8 path (``BENCH_QUANT=pre python bench.py``): the same config with
+PoseResNet-50 folded and quantized W8A8 (``models/quantize.py``), its
+weights stored int8, its int8 products on ``torch._int_mm``; and
 the serving slice on slice 1's models: ``serving.MultiStreamTracker``,
 ``serving.StreamingClipTracker`` and the per-frame ``tracking.FlowTracker``
 over ``pipeline.PosePredictor`` and ``FlowPredictor``; and the port's
@@ -46,6 +49,17 @@ evaluators behind them. Phases that each print one or more lines:
   6. fused: the same for slice 3 on 384x640 frames, the R50's batch norms
      holding seeded random statistics so that the fold does real work; the
      crop and fused_stage kernels must launch;
+  6b. int8: the int8 product's card route (``ops/int8_conv.py``: patch
+     matrix + ``torch._int_mm``) against its plain version (float64 conv)
+     bit for bit at every distinct conv shape of the quantized R50 at 256
+     crops, each timed beside cuDNN bf16, the plain version and its bound
+     at the int8 peak, and all +-127 operands at the largest K; the four
+     modes (folded bf16, int8, prequantized, mixed bf16) at 256 crops
+     beside the bf16 PoseResNet and the fused one of the same weights, ms a
+     forward, and the card against the port's CPU run on 4 crops; three
+     chained clips of the int8 path (crop and int8 GEMM launched) beside
+     the same config with the bf16 PoseResNet; the closed loop's check
+     (tests/test_quantize.py:119) runs in phase 12 on the R18 it trains;
   7. tracking: planted-heatmap pose and constant-flow stubs, under both
      flow conventions (FlowNetC's quarter-resolution flow / div_flow, and
      the FlowNet2 cascade's full-resolution flow on 360x640 frames); ids
@@ -118,7 +132,9 @@ evaluators behind them. Phases that each print one or more lines:
      step, forward and backward ms and one profiled step each (wall
      against device busy); and the train-to-eval closed loop of
      ``bench.py`` (R18 64x64, 60 epochs) through ``train``, AP above
-     max(0.3, AP before + 0.25).
+     max(0.3, AP before + 0.25); that R18 quantized W8A8 (``[int8]
+     check=closed_loop``): its keypoints within 4 px of the float model's
+     for more than 90% of the joints, both APs printed.
 
 Phase 3 also holds the divisions by a constant on the slice's path (the
 recovery crops' centers and scales, the decode's inverse map, the flow's
@@ -128,7 +144,8 @@ second is empty too.
 
 Then a short ``[summary]`` line repeating the run's headline numbers (build
 seconds, K5's chunk times, frames/s and the profiled clip's wall, busy and
-idle share per path, the fused R50's errors, the serving numbers), a JSON
+idle share per path, the fused R50's errors, the int8 forwards, the
+serving numbers), a JSON
 line with each kernel's numbers (launches from the fused path for crop and
 fused_stage, which must equal what the blocks' forms give, from the
 FlowNet2 path for correlation and resample2d; ``launches_by_path`` holds
@@ -214,7 +231,7 @@ R50_CHUNKS = ("layer1", "layer2", "layer3", "layer4")
 FLOWNET2_BF16_REL_TOL = 0.25
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # operations per second by operand type, and bytes per second of HBM
-PEAK_OPS = {"bf16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 # the serving phase: 4 streams of 40 frames (two 16-frame clips chained by
 # their overlap frame, then a ragged tail of 10), StreamingClipTracker on
@@ -974,12 +991,16 @@ def kernel_counters():
     from flowtrack_tpu_torch.ops import correlation as corr_mod
     from flowtrack_tpu_torch.ops import crop as crop_mod
     from flowtrack_tpu_torch.ops import fused_resnet as fused_mod
+    from flowtrack_tpu_torch.ops import int8_conv
     from flowtrack_tpu_torch.ops import warp as warp_mod
 
     return {"crop_resize_normalize": crop_mod.crop_frames_cuda,
             "correlation": corr_mod.correlation_cuda,
             "resample2d": warp_mod.resample2d_cuda,
-            "fused_stage": fused_mod.fused_stage_cuda}
+            "fused_stage": fused_mod.fused_stage_cuda,
+            # the int8 product's library route (torch._int_mm), no kernel
+            # of the port's own
+            "int8_gemm": int8_conv.int8_conv2d_gemm}
 
 
 def random_bn_pose_net(model_cfg, dev, gen):
@@ -1817,6 +1838,321 @@ def phase_precision():
         fused_rel_err=errs["fused"],
         fused_vs_bf16_rel_err=errs["fused_vs_bf16"],
         fused_tol=POSE_BF16_REL_TOL)
+
+
+# the int8 phase (models/quantize.py, ops/int8_conv.py): the pose net at the
+# flip batch of 8 persons x 16 frames, 256 crops; the port's CPU run on 4
+INT8_CROPS, INT8_CPU_CROPS = 256, 4
+# card against the port's CPU run, same weights and crops, max |diff| over
+# max |CPU output|: the int8 products are exact on both and their float
+# epilogues (scale, bias, ReLU, max pool) IEEE operations on both, so in
+# the int8 modes only the float32 head's summation order differs; the
+# modes with bf16 convs (folded, mixed) differ as bf16 compute does
+INT8_CPU_REL_TOL = 1e-4
+# tests/test_quantize.py:165's closed-loop contract: the int8 model's
+# decoded keypoints within one heatmap cell (4 px) of the float model's for
+# more than 90% of joints
+INT8_LOOP_PX, INT8_LOOP_SHARE = 4.0, 0.9
+
+
+def int8_conv_shapes(model, crop_hw):
+    """Every distinct QuantConv shape of ``model`` in forward order, read by
+    forward hooks on one crop: {(cin, cout, k, stride, padding, transpose,
+    h, w): [name of its first conv, convs of that shape in a forward]}."""
+    from flowtrack_tpu_torch.models.quantize import QuantConv
+
+    shapes = {}
+
+    def record(mod, args, name):
+        x = args[0]
+        key = (x.shape[1], mod.bias.numel(), mod.kernel_size, mod.strides,
+               mod.padding, mod.transpose, x.shape[2], x.shape[3])
+        shapes.setdefault(key, [name, 0])[1] += 1
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, name=name: record(mod, args, name))
+        for name, m in model.named_modules() if isinstance(m, QuantConv)]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 3, *crop_hw,
+                              device=model.conv1.amax.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def int8_conv_macs(n, cin, cout, k, stride, pad, transpose, h, w) -> int:
+    """Multiply-adds of one conv over n images: every tap of every output
+    (a transposed conv: every tap of every input pixel)."""
+    if transpose:
+        return n * h * w * cin * cout * k * k
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    return n * ho * wo * cout * cin * k * k
+
+
+def check_int8_convs(dev, shapes, on_card):
+    """The int8 product's card route (patch matrix + torch._int_mm) against
+    its plain version (float64 conv) bit for bit at every distinct conv
+    shape of the path's net at INT8_CROPS crops, random int8 operands (the
+    input in NHWC memory, as the path hands it on); each
+    timed beside the same conv through cuDNN in bf16 (channels last), the
+    plain version and its bound (int8 operations at the card's int8 peak).
+    Then all +-127 operands at the largest dense K (a 3x3 over the most
+    channels, every product counted) and at the largest GEMM K (the
+    transposed conv over the most channels, K = 16 x Cin with its inserted
+    zeros). -> (rows, names of the shapes where the int8 route beat cuDNN
+    bf16)."""
+    import torch.nn.functional as F
+
+    from flowtrack_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows, wins = [], []
+
+    def operands(key, n, fill=None):
+        cin, cout, k, _, _, transpose, h, w = key
+        wshape = (cin, cout, k, k) if transpose else (cout, cin, k, k)
+        if fill is not None:
+            x = torch.full((n, cin, h, w), 127, dtype=torch.int8, device=dev)
+            wq = torch.full(wshape, fill, dtype=torch.int8, device=dev)
+            # the other sign for the first half of the output channels
+            wq.narrow(int(transpose), 0, cout // 2).neg_()
+            return x, wq
+        # NHWC memory, as the path's activations leave an int8 conv
+        return (torch.randint(-127, 128, (n, cin, h, w), generator=gen,
+                              dtype=torch.int8, device=dev).contiguous(
+                                  memory_format=torch.channels_last),
+                torch.randint(-127, 128, wshape, generator=gen,
+                              dtype=torch.int8, device=dev))
+
+    for key, (name, count) in shapes.items():
+        cin, cout, k, s, p, t, h, w = key
+        x, wq = operands(key, INT8_CROPS)
+        got = int8_conv.int8_conv2d(x, wq, s, p, t)
+        want = int8_conv.int8_conv2d_plain(x, wq, s, p, t)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"int8 conv {name} {key}: card route != plain version")
+        del want
+        row = dict(conv=name, shape=f"{cin}->{cout} {k}x{k}/{s}"
+                   + (" transposed" if t else ""), input_hw=f"{h}x{w}",
+                   per_forward=count, bitwise=True)
+        if on_card:
+            conv = F.conv_transpose2d if t else F.conv2d
+            xb = x.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wb = wq.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            ms = time_ms(lambda: int8_conv.int8_conv2d(x, wq, s, p, t), 5)
+            cudnn_ms = time_ms(lambda: conv(xb, wb, stride=s, padding=p), 5)
+            plain_ms = time_ms(
+                lambda: int8_conv.int8_conv2d_plain(x, wq, s, p, t), 2,
+                warmup=1)
+            macs = int8_conv_macs(INT8_CROPS, *key)
+            row.update(ms=ms, cudnn_bf16_ms=cudnn_ms, plain_ms=plain_ms,
+                       **bound_fields(ms, bound_ms(2 * macs, "int8",
+                                                   (x, wq, got))),
+                       int8_tops=2 * macs / ms / 1e9)
+            if ms < cudnn_ms:
+                wins.append(name)
+            del xb, wb
+        log("int8", check="conv", **row)
+        rows.append(row)
+        del x, wq, got
+    dense = max((key for key in shapes if not key[5]),
+                key=lambda key: (key[0] * key[2] ** 2, -key[3]))
+    deep = max((key for key in shapes if key[5]), key=lambda key: key[0])
+    for label, key in (("dense", dense), ("gemm", deep)):
+        for sign in (1, -1):
+            cin, cout, k, s, p, t, h, w = key
+            x, wq = operands(key, 2, fill=sign * 127)
+            got = int8_conv.int8_conv2d(x, wq, s, p, t)
+            want = int8_conv.int8_conv2d_plain(x, wq, s, p, t)
+            require(torch.equal(got, want),
+                    f"int8 conv +-127 at the largest {label} K {key}: card "
+                    f"route != plain version")
+            peak = int(got.abs().max())
+            if not t and s == 1 and min(h, w) >= k:
+                # every tap of an interior output is a product
+                require(peak == cin * k * k * 127 * 127,
+                        f"int8 conv +-127 {key}: peak {peak}")
+            log("int8", check="extremes", k_kind=label,
+                gemm_k=k * k * cin, shape=shapes[key][0], sign=sign,
+                peak=peak, bitwise=True)
+    return rows, wins
+
+
+def quantized_models(cfg, dev, gen):
+    """``BENCH_QUANT``'s pose nets from one float R50 (float32 copy of the
+    config, random batch-norm statistics), calibrated on 2 x PERSONS random
+    crops as bench.py does, compute dtype bf16: runtime int8 (also run
+    float, "folded"), prequantized and mixed; and the same weights as the
+    config's bf16 PoseResNet and FusedPoseResNet."""
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.models.quantize import quantize_pose_model
+    from flowtrack_tpu_torch.ops.fused_resnet import fuse_pose_model
+
+    fcfg = replace(cfg.model, dtype="float32")
+    float_model = random_bn_pose_net(fcfg, dev, gen)
+    calib = torch.randn(2 * PERSONS, 3, *fcfg.image_size, generator=gen
+                        ).to(dev)
+    bf16 = torch.bfloat16
+    runtime = quantize_pose_model(float_model, fcfg, [calib],
+                                  compute_dtype=bf16)
+    pre = quantize_pose_model(float_model, fcfg, [calib], prequantized=True,
+                              compute_dtype=bf16)
+    mixed = quantize_pose_model(float_model, fcfg, [calib], mixed=True,
+                                compute_dtype=bf16)
+    base = get_pose_net(cfg.model, dev)
+    base.load_state_dict(float_model.state_dict())
+    return {"folded_bf16": lambda x: runtime(x, quantized=False),
+            "int8": runtime, "prequantized": pre, "mixed_bf16": mixed,
+            "pose_resnet_bf16": base,
+            "fused": fuse_pose_model(cfg.model, base)}
+
+
+def check_int8_modes(dev, models, crop_hw, on_card, card_f):
+    """The four modes and the two float nets on INT8_CROPS bf16 crops (as
+    ClipTracker crops): finite heatmaps of the right shape, runtime int8
+    equal to prequantized bit for bit, ms a forward and the int8 GEMMs a
+    forward; then the quantized nets moved to the CPU against the card on
+    INT8_CPU_CROPS crops."""
+    import copy
+
+    from flowtrack_tpu_torch.ops import int8_conv
+
+    hm_hw = tuple(d // 4 for d in crop_hw)
+    crops = torch.randn(INT8_CROPS, 3, *crop_hw, device=dev).to(torch.bfloat16)
+    out, ms = {}, {}
+    with torch.inference_mode():
+        for mode, model in models.items():
+            before = int8_conv.int8_conv2d_gemm.launches
+            y = model(crops)
+            gemms = int8_conv.int8_conv2d_gemm.launches - before
+            require(y.shape == (INT8_CROPS, 17, *hm_hw)
+                    and y.dtype == torch.float32
+                    and bool(torch.isfinite(y).all()),
+                    f"int8 {mode}: {y.dtype} {tuple(y.shape)} or not finite")
+            if on_card:
+                ms[mode] = time_ms(lambda m=model: m(crops), 3)
+            out[mode] = y[:INT8_CPU_CROPS].float().cpu()
+            log("int8", check="forward", mode=mode, crops=INT8_CROPS,
+                ms=ms.get(mode), int8_gemm_launches=gemms, card=card_f)
+        require(torch.equal(models["int8"](crops),
+                            models["prequantized"](crops)),
+                "int8: prequantized != runtime int8 on the card")
+        cpu_crops = crops[:INT8_CPU_CROPS].cpu()
+        errs = {}
+        for mode, tol in (("int8", INT8_CPU_REL_TOL),
+                          ("prequantized", INT8_CPU_REL_TOL),
+                          ("mixed_bf16", POSE_BF16_REL_TOL),
+                          ("folded_bf16", POSE_BF16_REL_TOL)):
+            if mode == "folded_bf16":
+                cpu = copy.deepcopy(models["int8"]).cpu()
+                want = cpu(cpu_crops, quantized=False)
+            else:
+                want = copy.deepcopy(models[mode]).cpu()(cpu_crops)
+            errs[mode] = ((out[mode] - want).abs().max()
+                          / want.abs().max()).item()
+            require(errs[mode] <= tol,
+                    f"int8 {mode}: card vs CPU {errs[mode]} > {tol}")
+    log("int8", check="card_vs_cpu", crops=INT8_CPU_CROPS, rel_err=errs,
+        tol={"int8": INT8_CPU_REL_TOL, "bf16": POSE_BF16_REL_TOL})
+    return ms, errs
+
+
+def phase_int8(card, dev=None):
+    """``BENCH_QUANT=pre python bench.py``'s path on the port: the
+    coco_res50_256x192 config (FlowNetS, flip, recovery, bf16 crops) with
+    PoseResNet-50 folded, calibrated and quantized W8A8, its weights stored
+    int8. The int8 product at every conv shape, the four modes and the float
+    nets at 256 crops, the card against the CPU, then three chained clips
+    of the path (crop and int8 GEMM launched) beside the same config with
+    the bf16 PoseResNet of the same weights. Returns the int8 path's launch
+    counts."""
+    from flowtrack_tpu_torch.config import get_config
+
+    dev = torch.device("cuda") if dev is None else dev
+    on_card = dev.type == "cuda"
+    card_f = f"'{card}'"
+    t_phase = time.perf_counter()
+    base = get_config("coco_res50_256x192")
+    cfg = replace(base, track=replace(base.track, max_persons=PERSONS,
+                                      max_recovered=RECOVERED))
+    require(cfg.model.num_layers == 50 and cfg.flow.variant == "flownet_s"
+            and cfg.model.dtype == "bfloat16", "R50 + FlowNetS, bf16")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    models = quantized_models(cfg, dev, gen)
+    shapes = int8_conv_shapes(models["prequantized"], cfg.model.image_size)
+    rows, wins = check_int8_convs(dev, shapes, on_card)
+    ms, errs = check_int8_modes(dev, models, cfg.model.image_size, on_card,
+                                card_f)
+    SUMMARY["int8_forward_ms"] = {k: round(v, 2) for k, v in ms.items()}
+    SUMMARY["int8_wins_over_cudnn_bf16"] = wins
+    log("int8", convs=len(rows), int8_wins_over_cudnn_bf16=wins,
+        route_ms_a_forward=sum(r.get("ms", 0) * r["per_forward"]
+                               for r in rows),
+        cudnn_bf16_ms_a_forward=sum(r.get("cudnn_bf16_ms", 0)
+                                    * r["per_forward"] for r in rows),
+        card=card_f)
+    if not on_card:
+        return {}
+    launches = drive_path("int8", card, cfg, (FRAME_H, FRAME_W),
+                          ("crop_resize_normalize", "int8_gemm"),
+                          models["prequantized"])
+    require(launches["crop_resize_normalize"] == 2 * CLIPS,
+            f"int8: {launches['crop_resize_normalize']} crop launches for "
+            f"{CLIPS} clips")
+    drive_path("int8_base", card, cfg, (FRAME_H, FRAME_W),
+               ("crop_resize_normalize",), models["pose_resnet_bf16"])
+    fps = SUMMARY["frames_per_s"]
+    log("int8", frames_per_s=fps["int8"], bf16_same_config=fps["int8_base"],
+        slice=fps.get("slice"), fused=fps.get("fused"), card=card_f)
+    SUMMARY["int8_phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log("int8", phase_s=time.perf_counter() - t_phase, launches=launches,
+        card=card_f)
+    return launches
+
+
+def int8_closed_loop(cfg, model, dev, card_f):
+    """tests/test_quantize.py:119's contract on the R18 the train CLI's
+    closed loop trained: quantized W8A8 (float32 compute, calibrated on the
+    first validation batch, as that test does), its decoded keypoints
+    within INT8_LOOP_PX of the float model's for more than INT8_LOOP_SHARE
+    of the joints; both models' COCO AP on the fixture through
+    ``run_validation``."""
+    import contextlib
+    import io
+
+    from flowtrack_tpu_torch.data import BatchLoader, COCODataset
+    from flowtrack_tpu_torch.models.quantize import quantize_pose_model
+    from flowtrack_tpu_torch.ops.decode import get_final_preds
+    from flowtrack_tpu_torch.tools.test import run_validation
+
+    model = model.eval()
+    batch = next(iter(BatchLoader(
+        COCODataset(cfg, cfg.data.root, "val2017", is_train=False), 8)))
+    x = torch.as_tensor(batch["input"], device=dev).permute(0, 3, 1, 2)
+    center, scale = (torch.as_tensor(batch[k], device=dev)
+                     for k in ("center", "scale"))
+    qmodel = quantize_pose_model(model, cfg.model, [x.contiguous()])
+    with torch.inference_mode():
+        preds = [get_final_preds(m(x.contiguous()).permute(0, 2, 3, 1),
+                                 center, scale)[0] for m in (model, qmodel)]
+    dist = (preds[0] - preds[1]).norm(dim=-1)
+    share = (dist <= INT8_LOOP_PX).float().mean().item()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ap_float = run_validation(cfg, model, device=dev)["AP"]
+        ap_int8 = run_validation(cfg, qmodel, device=dev)["AP"]
+    require(share > INT8_LOOP_SHARE,
+            f"int8 closed loop: {share} of the joints within "
+            f"{INT8_LOOP_PX} px of the float model's")
+    SUMMARY["int8_closed_loop"] = (round(share, 4), round(ap_float, 4),
+                                   round(ap_int8, 4))
+    log("int8", check="closed_loop", within_px=INT8_LOOP_PX,
+        share_within=share, mean_px=dist.mean().item(), ap_float=ap_float,
+        ap_int8=ap_int8, card=card_f)
 
 
 # the train phase: pose at the config's batch (32) on 256x192 crops from
@@ -3102,6 +3438,7 @@ def phase_train_cli(card, dev=None):
                 f"{len(lines)} epochs")
         SUMMARY["train_cli_closed_loop_ap"] = (round(ap_before, 4),
                                                round(ap_after, 4))
+        int8_closed_loop(lcfg, state.model, dev, card_f)
         log("train_cli", metric="coco_ap_train_to_eval_closed_loop_on_device",
             value=round(ap_after, 4), ap_before=round(ap_before, 4),
             unit=f"AP after {LOOP_EPOCHS} epochs on the synthetic fixture",
@@ -3127,6 +3464,9 @@ def main() -> int:
     torch.cuda.synchronize()
     fused = phase_fused(card)
     torch.cuda.synchronize()
+    int8 = phase_int8(card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     phase_tracking("flownet_c", (FRAME_H, FRAME_W))
     phase_tracking("flownet2", (FN2_H, FN2_W))
     torch.cuda.synchronize()
@@ -3142,7 +3482,7 @@ def main() -> int:
     train_cli = phase_train_cli(card)
     torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
-               "eval": eval_, "serving": serving, "train": train,
+               "int8": int8, "eval": eval_, "serving": serving, "train": train,
                "train_cli": train_cli}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")

@@ -18,7 +18,9 @@ The ImageNet init (torch_convert.py:27, :122-185): ``load_torch_file``,
 and ``init_backbone_from_imagenet`` as the reference has them, the last
 also loading a torchvision state dict straight into the port's module
 (whose names are torchvision's); ``load_backbone_tree`` loads a converted
-backbone tree.
+backbone tree. ``quant_state_dict`` / ``load_quant_pose`` load the
+reference's int8 pose variables (folded or prequantized, with their
+activation scales) into the port's ``PoseResNetQ``.
 
 Layouts: the reference's conv kernels are HWIO, torch's Conv2d weights
 (Cout, Cin, kH, kW); its deconv kernels are spatially flipped HWIO (an
@@ -188,6 +190,47 @@ def fused_state_dict(variables: dict) -> dict:
     sd["final.kernel"] = conv_kernel_to_torch(_f32(variables["final"]["kernel"]))
     sd["final.bias"] = _f32(variables["final"]["bias"])
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def quant_state_dict(variables: dict) -> dict:
+    """The reference's quantized pose variables (``models/quantize.py``:
+    ``{"params": folded or prequantized tree, "quant": {... "amax"}}``, as
+    numpy or tensors) -> ``PoseResNetQ``'s state dict. A ``{kernel, bias}``
+    node gives ``weight`` and ``bias``, a ``{wq, w_scale, bias}`` node
+    ``wq``, ``w_scale`` and ``bias``; kernels HWIO (``deconv{i}``: flipped
+    HWIO) become torch's layouts. Without ``"quant"`` every ``amax`` is 0."""
+    sd = {}
+
+    def walk(node, quant, prefix):
+        for name, v in node.items():
+            key = prefix + name
+            if not isinstance(v, dict):  # final_kernel, final_bias
+                sd[key] = (conv_kernel_to_torch(_f32(v))
+                           if name == "final_kernel" else _f32(v))
+            elif "bias" in v:
+                to_torch = (deconv_kernel_to_torch if name.startswith("deconv")
+                            else conv_kernel_to_torch)
+                if "kernel" in v:
+                    sd[key + ".weight"] = to_torch(_f32(v["kernel"]))
+                else:
+                    sd[key + ".wq"] = to_torch(np.asarray(v["wq"], np.int8))
+                    sd[key + ".w_scale"] = _f32(v["w_scale"])
+                sd[key + ".bias"] = _f32(v["bias"])
+                sd[key + ".amax"] = (np.zeros((), np.float32) if quant is None
+                                     else _f32(quant[name]["amax"]))
+            else:
+                walk(v, None if quant is None else quant[name], key + ".")
+
+    walk(variables["params"], variables.get("quant"), "")
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def load_quant_pose(module: nn.Module, variables: dict) -> nn.Module:
+    """Quantized pose variables (``quant_state_dict``) -> the port's
+    ``PoseResNetQ`` (in place). A missing or an extra tensor fails, and so
+    does a float tree for a prequantized module or the other way."""
+    module.load_state_dict(quant_state_dict(variables), strict=True)
+    return module
 
 
 def _load(module: nn.Module, sd) -> nn.Module:
