@@ -38,10 +38,24 @@ evaluators behind them. Phases that each print one or more lines:
      in the form each chunk's shape dispatches to, also beside the same
      blocks through cuDNN bf16 convolutions);
   4. slice: three chained 16-frame 384x640 clips of slice 1 at full width
-     with seeded random weights, the crop and correlation launch counts
-     read around the run, and frames/s after a warm-up clip; then one clip
-     under torch.profiler (device busy and idle share, host syncs, time per
-     clip.* stage, each kernel's device time);
+     with seeded random weights after a warm-up clip, the crop and
+     correlation launch counts set to 0 just before the run and read just
+     after from its device trace (on the card ``run_prepared_lanes``
+     replays the clip program as one CUDA graph per geometry, captured in
+     the warm-up clip, and a replay launches the kernels without calling
+     their wrappers, so each kernel's device functions are counted by
+     name), and frames/s of the traced run; ``[graph]``: the graph
+     against the eager ``_clip`` on one clip (ids, valid masks and seeds
+     bit for bit, joints within 1e-3 px), frames/s of each in turns,
+     capture ms, what the capture added to the tracker's graph pool, no
+     host sync in either route under
+     ``torch.cuda.set_sync_debug_mode("error")``, each route's wall, busy,
+     idle share and device events under torch.profiler, the eager run's
+     kernels by name equal to the wrappers' counts and one replay's equal
+     to the eager run's; then one clip under
+     torch.profiler on each route (the graph's device busy and idle share,
+     host syncs, each kernel's device time; the eager route's time per
+     clip.* stage);
   5. flownet2: the same for slice 2 on 360x640 frames (the flow net runs at
      the /64-rounded 384x640, its fused flow shrinks back through the
      antialiased resize); the crop, correlation and warp kernels must all
@@ -60,11 +74,19 @@ evaluators behind them. Phases that each print one or more lines:
      chained clips of the int8 path (crop and int8 GEMM launched) beside
      the same config with the bf16 PoseResNet; the closed loop's check
      (tests/test_quantize.py:119) runs in phase 12 on the R18 it trains;
+  6c. aot: slice 1's and the fused path's clip programs exported for
+     ``cuda`` by ``flowtrack_tpu_torch/aot.py`` (``torch.export``) and
+     loaded back: over two chained clips the artifact equals the live
+     tracker bit for bit, and launches the path's kernels; the live
+     tracker's second clip, run after the export, equals the eager
+     ``_clip`` (the fused net's graph is captured again after the export
+     rebuilt its blocks);
   7. tracking: planted-heatmap pose and constant-flow stubs, under both
      flow conventions (FlowNetC's quarter-resolution flow / div_flow, and
      the FlowNet2 cascade's full-resolution flow on 360x640 frames); ids
      must stay stable across clip boundaries and survive a dropped
-     detection, and equal the port's plain run on the CPU;
+     detection, and equal the port's plain run on the CPU; the clip graph
+     equals the eager ``_clip`` bit for bit over the chained clips;
   8. eval: the port's CLIs through their own ``main``, their stdout kept
      aside: ``track`` with flowtrack_posetrack (R152 256x192) and FlowNetC,
      bf16, seeded random weights written as the reference's .npz, over a
@@ -86,7 +108,8 @@ evaluators behind them. Phases that each print one or more lines:
      streams of 40 frames submitted in turns to MultiStreamTracker
      (16-frame clips, the four streams batched as lanes of one run) at
      pipeline depths 0 and 1, with the launches of one batched step read
-     around it (2 crop launches, 1 correlation launch, for four lanes); how
+     around it (2 crop launches, 1 correlation launch, for four lanes),
+     every count of this phase's tracker runs from their device trace; how
      far the nets' outputs move with the batch; each stream's emissions
      equal to track_video_clips on it alone with the nets called at one
      lane's batch, and the path's own divergence; the planted stubs
@@ -96,7 +119,11 @@ evaluators behind them. Phases that each print one or more lines:
      warm-up; FlowTracker over PosePredictor and FlowPredictor, its ms per
      frame and its planted ids equal to the CPU's; track_clips of 4 lanes
      against 4 track_clip calls in turns (frames/s of both, every slot
-     equal with the nets at one lane's batch); device events per lane-clip
+     equal with the nets at one lane's batch); the 4-lane clip graph
+     against the eager ``_clip`` (``[graph]``); every serving tracker's
+     graphs (geometry, capture ms, each capture's pool growth, the shared
+     pool's MiB), and one tracker over clips of three frame sizes, each
+     run equal to the eager ``_clip``; device events per lane-clip
      at C=1 and C=4 under torch.profiler;
  10. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
      float32 glue) against float32 ones with the same weights, and the
@@ -139,8 +166,9 @@ evaluators behind them. Phases that each print one or more lines:
 Phase 3 also holds the divisions by a constant on the slice's path (the
 recovery crops' centers and scales, the decode's inverse map, the flow's
 pair normalisation) on the card to the CPU bit for bit. A profile that
-records no device event is taken again once, and fails the run if the
-second is empty too.
+records no device event, or whose kernels by name fall short of what the
+run must launch (the profiler drops a record now and then), is taken
+again once, and fails the run if the second does too.
 
 Then a short ``[summary]`` line repeating the run's headline numbers (build
 seconds, K5's chunk times, frames/s and the profiled clip's wall, busy and
@@ -161,6 +189,7 @@ file) and no network; it imports neither jax nor the reference package
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -173,6 +202,8 @@ import torch
 FRAMES, FRAME_H, FRAME_W = 16, 384, 640
 FN2_H, FN2_W = 360, 640
 PERSONS, RECOVERED = 8, 4
+# frame sizes one serving tracker captures graphs for, into one pool
+POOL_FRAME_SIZES = ((FRAME_H, FRAME_W), (FN2_H, FN2_W), (192, 320))
 CLIPS = 3
 SEED = 0
 # kernel-vs-plain tolerances, max |kernel - plain|:
@@ -238,6 +269,9 @@ PEAK_BYTES = 3.35e12
 # 32 frames, the per-frame FlowTracker on 16
 SERVE_STREAMS, SERVE_FRAMES = 4, 40
 STREAM_FRAMES, FLOWTRACKER_FRAMES = 32, 16
+# the exported clip programs' length: an export traces every op of the
+# clip's scans on the host (seconds per thousand ops), so it is cut short
+AOT_FRAMES = 4
 # the planted stubs' constant motion, px per frame
 PLANTED_VEL = (3.0, 1.5)
 # card against card (a batched lane against its stream alone): the CPU
@@ -1003,6 +1037,211 @@ def kernel_counters():
             "int8_gemm": int8_conv.int8_conv2d_gemm}
 
 
+# each counted kernel's device functions, as the profiler names them: the
+# port's kernels by function name, and torch._int_mm's int8 GEMMs (library
+# kernels, CUTLASS's tensor-op GEMMs on the H100) by the mark of their s8
+# operands. ``graph_route`` holds the names to the wrappers' counts on the
+# eager route.
+KERNEL_FUNCTIONS = {
+    "crop_resize_normalize": re.compile(r"\bcrop_band_kernel[<(]"),
+    "correlation": re.compile(r"\bcorrelation(_mma)?_kernel[<(]"),
+    "resample2d": re.compile(r"\bresample2d_kernel[<(]"),
+    "fused_stage": re.compile(r"\b(block|conv)_wgmma_kernel[<(]"),
+    "int8_gemm": re.compile(r"gemm_s8"),
+}
+
+
+def kernel_events(device_events) -> dict:
+    """Device events of each counted kernel, by name."""
+    return {k: sum(bool(rule.search(e.name)) for e in device_events)
+            for k, rule in KERNEL_FUNCTIONS.items()}
+
+
+def zero_counts(run):
+    """``run`` with every wrapper's launch count set to 0 just before."""
+    def counted_run():
+        for fn in kernel_counters().values():
+            fn.launches = 0
+        return run()
+
+    return counted_run
+
+
+def counted(tag, run, check=None) -> tuple:
+    """``run()``, every launch count set to 0 just before, under
+    torch.profiler (``profile_run``): (its result, seconds, launches). A
+    replayed clip graph launches its kernels without calling their
+    wrappers, so each kernel's launches are its device functions counted
+    by name in this run's trace; the wrappers' counts, read just after, may
+    not exceed them (a wrapper counts only where it launches: its eager
+    calls, and a capture's, whose graph then replays). ``check(launches)``
+    holds the counts to what the run must launch; a trace that fails
+    either is taken again once, with the counts at 0 again."""
+    counters = kernel_counters()
+    result = {}
+
+    def counted_run():
+        result["out"] = zero_counts(run)()
+
+    def holds(device):
+        launches = kernel_events(device)
+        wrappers = {k: fn.launches for k, fn in counters.items()}
+        require(all(wrappers[k] <= launches[k] for k in launches),
+                f"{tag}: the wrappers counted {wrappers}, the trace shows "
+                f"{launches}")
+        if check is not None:
+            check(launches)
+
+    _, wall_ms, device = profile_run(tag, counted_run, holds)
+    return result["out"], wall_ms / 1e3, kernel_events(device)
+
+
+def eager_run(tracker, args, seeds=None):
+    """``run_prepared_lanes``' eager route: ``ClipTracker._clip``, the
+    clip graph's plain version, called directly on lane args (C, ...)."""
+    with torch.inference_mode():
+        empty = tracker.empty_seed()
+        seeds = [empty if s is None else s
+                 for s in (seeds or [None] * args[0].shape[0])]
+        seed = [torch.stack(leaves) for leaves in zip(*seeds)]
+        return tracker._clip(*args, *seed)
+
+
+def same_routes(what, got, want, joint_tol) -> dict:
+    """The clip graph's outputs against the eager ``_clip``'s (lane axis
+    kept): ids, valid masks and every seed leaf equal bit for bit; joints,
+    maxvals and scores within ``joint_tol`` (0: bit for bit). Returns the
+    max |diff| of each float output."""
+    names = ("joints", "maxvals", "scores", "ids", "valid")
+    for name, a, b in zip(names[3:], got[3:5], want[3:5]):
+        require(torch.equal(a, b), f"{what}: graph and eager {name} differ")
+    for i, (a, b) in enumerate(zip(got[5], want[5])):
+        require(torch.equal(a, b), f"{what}: graph and eager seed leaf {i} "
+                                   f"differs")
+    diffs = {name: (a.double() - b.double()).abs().max().item()
+             for name, a, b in zip(names[:3], got[:3], want[:3])}
+    require(max(diffs.values()) <= joint_tol,
+            f"{what}: graph against eager {diffs} > {joint_tol}")
+    return diffs
+
+
+def graph_route(tag, tracker, args, card_f, bitwise=False):
+    """The clip as its CUDA graph against the eager ``_clip`` on the same
+    prepared lane args: the outputs (``same_routes``), each route's
+    frames/s in turns (eager, graph, graph, eager; CLIPS runs each, each
+    fetched to the host), the capture's ms and what it added to the
+    tracker's graph pool, and no host sync in either route
+    (``torch.cuda.set_sync_debug_mode("error")``). Then one run of each
+    route under torch.profiler, the launch counts at 0 just before: wall
+    time, device busy time and idle share, device events and host syncs
+    (none allowed); the eager run's kernels by name equal to the wrappers'
+    counts (which checks the names ``kernel_events`` counts by), and the
+    replay's to the eager run's; for the graph, the port's kernels' device
+    ms and the heaviest device ops; for the eager ``_clip`` (a replayed
+    graph has no host ranges), each clip.* stage's host ms, kernel ms and
+    device span ms."""
+    c, f = args[0].shape[:2]
+    graph = tracker.graphs.get(tracker.graph_key(args, None))
+    if graph is None:
+        tracker.run_prepared_lanes(args)
+        graph = tracker.graphs[tracker.graph_key(args, None)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tracker.run_prepared_lanes(args)
+        want = eager_run(tracker, args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    diffs = same_routes(f"{tag} graph", got, want,
+                        0.0 if bitwise else SAME_DEVICE_JOINT_TOL)
+    runs = {"eager": lambda: tracker.to_host(eager_run(tracker, args)),
+            "graph": lambda: tracker.to_host(tracker.run_prepared_lanes(args))}
+    fps = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CLIPS):
+            runs[name]()
+        fps[name].append(CLIPS * c * f / (time.perf_counter() - t0))
+    fields = {"lanes": c, "frames_per_clip": f,
+              "eager_frames_per_s": fps["eager"],
+              "graph_frames_per_s": fps["graph"],
+              "capture_ms": graph.capture_ms,
+              "pool_mib": graph.pool_bytes / 2 ** 20,
+              "tracker_pool_mib": sum(g.pool_bytes for g in
+                                      tracker.graphs.values()) / 2 ** 20,
+              "no_host_sync": True, "max_abs_diff": diffs,
+              "bitwise": max(diffs.values()) == 0.0}
+    counters = kernel_counters()
+    seen = {}
+
+    def same_as_wrappers(device):
+        got = kernel_events(device)
+        wrappers = {k: fn.launches for k, fn in counters.items()}
+        require(got == wrappers, f"{tag}: the eager clip's trace shows "
+                                 f"{got}, its wrappers counted {wrappers}")
+
+    def same_as_eager(device):
+        got = kernel_events(device)
+        require(got == seen["eager"], f"{tag}: a replay launched {got}, "
+                                      f"the eager clip {seen['eager']}")
+
+    checks = {"eager": same_as_wrappers, "graph": same_as_eager}
+    for name, run in runs.items():
+        prof, wall_ms, device = profile_run(f"{tag}_{name}", zero_counts(run),
+                                            checks[name])
+        seen[name] = kernel_events(device)
+        busy_ms = sum(e.device_time_total for e in device) / 1e3
+        host_syncs = sum(e.name == "aten::_local_scalar_dense"
+                         for e in prof.events())
+        require(host_syncs == 0, f"{tag} {name}: {host_syncs} host syncs")
+        fields[name] = {"wall_ms": round(wall_ms, 2),
+                        "busy_ms": round(busy_ms, 2),
+                        "idle_share": round(1 - busy_ms / wall_ms, 4),
+                        "device_events": len(device)}
+        if name == "eager":
+            log("profile", path=tag, route=name,
+                stages_host_kernel_span_ms=clip_stages(prof))
+            continue
+        log("graph", path=tag, check="replay launches by kernel name",
+            launches=seen[name], card=card_f)
+        by_name = {}
+        for e in device:
+            by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                    + e.device_time_total / 1e3)
+        ours = {k: round(sum(v for n, v in by_name.items() if k in n), 3)
+                for k in ("crop_band_kernel", "correlation_kernel",
+                          "correlation_mma_kernel", "resample2d_kernel",
+                          "block_wgmma_kernel", "conv_wgmma_kernel")}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log("profile", path=tag, route=name, port_kernels_device_ms=ours)
+        log("profile", path=tag, route=name,
+            top_device_ms=[(k, round(v, 3)) for k, v in top])
+    SUMMARY.setdefault("graph", {})[tag] = {
+        **{f"fps_{k}": [round(x, 1) for x in v] for k, v in fps.items()},
+        **{f"wall_busy_idle_events_{k}": tuple(fields[k].values())
+           for k in runs},
+        "capture_ms": round(graph.capture_ms),
+        "pool_mib": round(fields["pool_mib"])}
+    log("graph", path=tag, **fields, card=card_f)
+    return fields
+
+
+def clip_stages(prof) -> dict:
+    """Each clip.* range of an eager clip's profile: (host ms, kernel ms,
+    device span ms)."""
+    stages = {}
+    for e in prof.key_averages():
+        if e.key.startswith("clip."):
+            host, kern, span = stages.get(e.key, (0.0, 0.0, 0.0))
+            if e.cpu_time_total > 0:
+                host, kern = e.cpu_time_total / 1e3, e.device_time_total / 1e3
+            else:
+                span = e.device_time_total / 1e3
+            stages[e.key] = (round(host, 3), round(kern, 3), round(span, 3))
+    return stages
+
+
 def random_bn_pose_net(model_cfg, dev, gen):
     """``get_pose_net``'s seeded PoseResNet with every batch norm's running
     mean ~ N(0, 0.1) and running variance and scale ~ U(0.5, 1.5), drawn
@@ -1021,13 +1260,17 @@ def random_bn_pose_net(model_cfg, dev, gen):
     return model
 
 
-def drive_path(tag, card, cfg, frame_hw, path_kernels, pose_model=None):
+def drive_path(tag, card, cfg, frame_hw, path_kernels, pose_model=None,
+               check=None):
     """Full width, seeded random weights: one warm-up clip, then CLIPS
-    chained FRAMES-frame clips with every launch count set to 0 just before
-    and read just after; each kernel of ``path_kernels`` must have launched.
+    chained FRAMES-frame clips, the main path's run, with every launch
+    count set to 0 just before and read just after from the run's device
+    trace (``counted``: the clips replay their graph); each kernel of
+    ``path_kernels`` must have launched, and ``check(launches)`` hold.
     ``pose_model`` replaces the config's seeded PoseResNet. Checks the
-    outputs' shapes and finiteness, logs frames/s, then profiles one clip.
-    Returns the launch counts of the run."""
+    outputs' shapes and finiteness, logs frames/s, then holds the clip
+    graph to the eager ``_clip`` on one clip and profiles both routes
+    (``graph_route``). Returns the launch counts of the run."""
     from flowtrack_tpu_torch.models.flownet import get_flow_net
     from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
     from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
@@ -1053,16 +1296,14 @@ def drive_path(tag, card, cfg, frame_hw, path_kernels, pose_model=None):
     warm = run_clips(tracker, video[:FRAMES], boxes, scores, valid, FRAMES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    outs = run_clips(tracker, video, boxes, scores, valid, FRAMES)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    require(all(launches[k] for k in path_kernels),
-            f"{tag}: a kernel of the path never launched: {launches}")
+    def holds(launches):
+        require(all(launches[k] for k in path_kernels),
+                f"{tag}: a kernel of the path never launched: {launches}")
+        if check is not None:
+            check(launches)
+
+    outs, elapsed, launches = counted(tag, lambda: run_clips(
+        tracker, video, boxes, scores, valid, FRAMES), holds)
     slots = PERSONS + RECOVERED
     for out in warm + outs:
         require(out["joints"].shape == (FRAMES, slots, 17, 2),
@@ -1077,9 +1318,11 @@ def drive_path(tag, card, cfg, frame_hw, path_kernels, pose_model=None):
     SUMMARY.setdefault("frames_per_s", {})[tag] = round(fps, 2)
     log(tag, clips=len(outs), frames_per_clip=FRAMES, frame_hw=f"{h}x{w}",
         persons=PERSONS, seconds=elapsed, frames_per_s=fps,
-        launches=launches, card=f"'{card}'",
+        launches=launches, device_traced=True, card=f"'{card}'",
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    phase_profile(tag, tracker, video, boxes, scores, valid)
+    args = tracker.prepare_lanes(video[None, :FRAMES], boxes[None, :FRAMES],
+                                 scores[None, :FRAMES], valid[None, :FRAMES])
+    graph_route(tag, tracker, args, f"'{card}'")
     return launches
 
 
@@ -1149,24 +1392,28 @@ def phase_fused(card):
     per_forward = fused.kernel_launches(cfg.model.image_size)
     log("fused", fold_s=f"{time.perf_counter() - t0:.1f}",
         fused_stage_launches_per_forward=per_forward)
-    launches = drive_path("fused", card, cfg, (FRAME_H, FRAME_W),
-                          ("crop_resize_normalize", "fused_stage"), fused)
-    # every pose pass is one crop launch and one forward of the fused net
-    expected = launches["crop_resize_normalize"] * per_forward
-    require(launches["fused_stage"] == expected,
-            f"fused: {launches['fused_stage']} fused_stage launches, the "
-            f"blocks' forms give {expected}")
-    return launches
+    def forms(launches):
+        # every pose pass is one crop launch and one forward of the fused
+        # net
+        expected = launches["crop_resize_normalize"] * per_forward
+        require(launches["fused_stage"] == expected,
+                f"fused: {launches['fused_stage']} fused_stage launches, "
+                f"the blocks' forms give {expected}")
+
+    return drive_path("fused", card, cfg, (FRAME_H, FRAME_W),
+                      ("crop_resize_normalize", "fused_stage"), fused, forms)
 
 
-def profile_run(tag, run):
+def profile_run(tag, run, check=None):
     """``run()`` under torch.profiler, ending in a synchronize: (profile,
     wall ms, device events). Device work is kernels and copies; the clip.*
     ranges also appear as device-side annotations spanning their kernels,
-    so they are left out. A profile with no device event (the profiler's
-    fault: it happened once on a path whose kernels had all launched) is
-    taken again once; a second empty one raises, so no line reads 100%
-    idle."""
+    so they are left out. ``check(device events)`` holds the trace to what
+    the run must show (it raises AssertionError). A trace with no device
+    event, or one that fails the check, is taken again once: the profiler
+    has recorded no event of a path whose kernels had all launched, and has
+    dropped one kernel's record in about one trace of sixty on an H100. A
+    second such trace raises, so no line reads 100% idle."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in (1, 2):
@@ -1180,51 +1427,16 @@ def profile_run(tag, run):
         device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.name.startswith("clip.")]
-        if device:
+        try:
+            require(device, f"{tag}: the trace recorded no device event")
+            if check is not None:
+                check(device)
             return prof, wall_ms, device
-        log("profile", path=tag, attempt=attempt, device_events=0,
-            note="no device events recorded" + ("; profiling again"
-                                                if attempt == 1 else ""))
-    raise AssertionError(f"{tag}: two profiles recorded no device event")
-
-
-def phase_profile(tag, tracker, video, boxes, scores, valid):
-    """One clip under torch.profiler: wall time, device busy time and idle
-    share, device events, host syncs, each clip.* stage's host ms, kernel ms
-    and device span ms, the port's kernels' device ms, and the heaviest
-    device ops."""
-    sl = slice(0, FRAMES)
-    args = tracker.prepare(video[sl], boxes[sl], scores[sl], valid[sl])
-    prof, wall_ms, device = profile_run(
-        tag, lambda: tracker.to_host(tracker.run_prepared(args)))
-    events = prof.events()
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
-    host_syncs = sum(e.name == "aten::_local_scalar_dense" for e in events)
-    stages = {}
-    for e in prof.key_averages():
-        if e.key.startswith("clip."):
-            host, kern, span = stages.get(e.key, (0.0, 0.0, 0.0))
-            if e.cpu_time_total > 0:
-                host, kern = e.cpu_time_total / 1e3, e.device_time_total / 1e3
-            else:
-                span = e.device_time_total / 1e3
-            stages[e.key] = (round(host, 3), round(kern, 3), round(span, 3))
-    by_name = {}
-    for e in device:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total / 1e3
-    ours = {k: round(sum(v for name, v in by_name.items() if k in name), 3)
-            for k in ("crop_band_kernel", "correlation_kernel",
-                      "correlation_mma_kernel", "resample2d_kernel",
-                      "block_wgmma_kernel", "conv_wgmma_kernel")}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    SUMMARY.setdefault("profile_wall_busy_idle", {})[tag] = (
-        round(wall_ms, 1), round(busy_ms, 1), round(1 - busy_ms / wall_ms, 3))
-    log("profile", path=tag, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        idle_share=1 - busy_ms / wall_ms, device_events=len(device),
-        host_syncs=host_syncs, stages_host_kernel_span_ms=stages)
-    log("profile", path=tag, port_kernels_device_ms=ours)
-    log("profile", path=tag,
-        top_device_ms=[(k, round(v, 3)) for k, v in top])
+        except AssertionError as err:
+            if attempt == 2:
+                raise
+            log("profile", path=tag, attempt=attempt,
+                note=f"{err}; profiling again")
 
 
 class PlantedPose(torch.nn.Module):
@@ -1274,8 +1486,11 @@ class ConstantFullResFlow(torch.nn.Module):
 
     def forward(self, x):
         n, _, h, w = x.shape
-        scale = torch.tensor([w / self.frame_hw[1], h / self.frame_hw[0]],
-                             device=x.device)
+        # filled on the device: a clip graph's capture takes no host data
+        scale = torch.stack([x.new_full((), w / self.frame_hw[1],
+                                        dtype=torch.float32),
+                             x.new_full((), h / self.frame_hw[0],
+                                        dtype=torch.float32)])
         return (self.vel * scale).view(1, 2, 1, 1).expand(n, 2, h, w)
 
 
@@ -1292,15 +1507,17 @@ def planted_config(variant="flownet_c"):
                                  max_recovered=RECOVERED))
 
 
-def phase_tracking(variant, frame_hw):
+def phase_tracking(card, variant, frame_hw):
     """Planted-heatmap pose + constant-flow stubs through the real crop
     kernel, decode and scans, under ``variant``'s flow convention: ids
-    stable across clip boundaries and through dropped detections, and equal
-    to the port's plain run on the CPU."""
+    stable across clip boundaries and through dropped detections, equal
+    to the port's plain run on the CPU, and the clip graph equal to the
+    eager ``_clip`` on the card bit for bit over the chained clips."""
     from flowtrack_tpu_torch.models.flownet import flow_output_is_full_res
     from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
 
     cfg = planted_config(variant)
+    card_f = f"'{card}'"
     persons = cfg.track.max_persons
     vel = PLANTED_VEL
     h, w = frame_hw
@@ -1317,16 +1534,35 @@ def phase_tracking(variant, frame_hw):
     scores = np.concatenate([scores, np.zeros((n_frames, pad), np.float32)], 1)
     valid = np.concatenate([valid, np.zeros((n_frames, pad), bool)], 1)
 
-    results = {}
+    results, trackers = {}, {}
     for name in ("cuda", "cpu"):
         dev = torch.device(name)
         flow = (ConstantFullResFlow(vel, frame_hw, dev)
                 if flow_output_is_full_res(variant)
                 else ConstantFlow(vel, cfg.flow.div_flow, dev))
-        tracker = ClipTracker(cfg, PlantedPose(cfg.model.heatmap_size, dev),
-                              flow, device=dev)
-        results[name] = run_clips(tracker, video, boxes, scores, valid, FRAMES)
+        trackers[name] = ClipTracker(
+            cfg, PlantedPose(cfg.model.heatmap_size, dev), flow, device=dev)
+        results[name] = run_clips(trackers[name], video, boxes, scores,
+                                  valid, FRAMES)
     torch.cuda.synchronize()
+    # the clip graph against the eager _clip over the chained clips, each
+    # seeded by its own route's last seed: bit for bit
+    tracker = trackers["cuda"]
+    seeds, start = {"graph": None, "eager": None}, 0
+    while start + FRAMES <= n_frames:
+        sl = slice(start, start + FRAMES)
+        args = tracker.prepare_lanes(video[None, sl], boxes[None, sl],
+                                     scores[None, sl], valid[None, sl],
+                                     frame_offsets=[start])
+        got = tracker.run_prepared_lanes(args, [seeds["graph"]])
+        want = eager_run(tracker, args, [seeds["eager"]])
+        same_routes(f"tracking {variant} clip at {start}", got, want, 0.0)
+        seeds = {"graph": tuple(x[0] for x in got[5]),
+                 "eager": tuple(x[0] for x in want[5])}
+        start += FRAMES - 1
+    graph_route(f"planted_{variant}", tracker, tracker.prepare_lanes(
+        video[None, :FRAMES], boxes[None, :FRAMES], scores[None, :FRAMES],
+        valid[None, :FRAMES]), card_f, bitwise=True)
     for got, want in zip(results["cuda"], results["cpu"]):
         np.testing.assert_array_equal(got["ids"], want["ids"])
         np.testing.assert_array_equal(got["valid"], want["valid"])
@@ -1355,7 +1591,34 @@ def phase_tracking(variant, frame_hw):
     require(len(set(person_ids.values())) == 3, person_ids)
     log("tracking", flow=variant, frame_hw=f"{h}x{w}",
         clips=len(results["cuda"]), ids=person_ids,
-        recovered_frames=recovered, cpu_equal=True)
+        recovered_frames=recovered, cpu_equal=True, graph_equal_eager=True)
+
+
+def pool_over_frame_sizes(tracker, rng, card_f) -> None:
+    """One clip at each of POOL_FRAME_SIZES through ``tracker``, then the
+    first size again: each new geometry captures a graph into the
+    tracker's one pool. Each run equals the eager ``_clip`` (ids, valid
+    and seeds bit for bit, the rest within SAME_DEVICE_JOINT_TOL), so no
+    replay sees another graph's memory; logs each capture's pool growth,
+    the pool's total and the device memory reserved."""
+    grown = []
+    for h, w in (*POOL_FRAME_SIZES, POOL_FRAME_SIZES[0]):
+        video = rng.integers(0, 256, (1, FRAMES, h, w, 3), np.uint8)
+        det = video_detections(rng, FRAMES, PERSONS, h, w, (2.0, 1.0))
+        args = tracker.prepare_lanes(video, *(x[None] for x in det))
+        before = len(tracker.graphs)
+        got = tracker.run_prepared_lanes(args)
+        graph = tracker.graphs[tracker.graph_key(args, None)]
+        same_routes(f"pool {h}x{w}", got, eager_run(tracker, args),
+                    SAME_DEVICE_JOINT_TOL)
+        grown.append((f"{h}x{w}", round(graph.pool_bytes / 2 ** 20)
+                      if len(tracker.graphs) > before else 0))
+    total = sum(g.pool_bytes for g in tracker.graphs.values()) / 2 ** 20
+    SUMMARY["graph_pool_mib_tracker"] = round(total)
+    log("graph", check="one pool over frame sizes", geometries=len(
+        tracker.graphs), capture_growth_mib=grown, pool_mib=total,
+        reserved_mib=torch.cuda.memory_reserved() / 2 ** 20,
+        equal_to_eager=True, card=card_f)
 
 
 def ragged(boxes, scores, valid):
@@ -1564,13 +1827,14 @@ def phase_serving(card, dev=None):
 
     # one batched step of the four streams: one crop launch per pose pass
     # and one correlation launch, whatever the lane count
-    for fn in counters.values():
-        fn.launches = 0
-    tracker.to_host(tracker.run_prepared_lanes(lanes))
-    step = {name: fn.launches for name, fn in counters.items()}
-    require(step["crop_resize_normalize"] == 2 and step["correlation"] == 1,
-            f"serving: one batched step of {len(clips)} lanes launched "
-            f"{step}, not 2 crop and 1 correlation launches")
+    def one_step(step):
+        require(step["crop_resize_normalize"] == 2
+                and step["correlation"] == 1,
+                f"serving: one batched step of {len(clips)} lanes launched "
+                f"{step}, not 2 crop and 1 correlation launches")
+
+    _, _, step = counted("serving_step", lambda: tracker.to_host(
+        tracker.run_prepared_lanes(lanes)), one_step)
     log("serving", check="launches of one batched step", lanes=len(clips),
         launches=step)
 
@@ -1584,17 +1848,13 @@ def phase_serving(card, dev=None):
         want = {sid: track_video_clips(trk, *st, clip_len=FRAMES)
                 for sid, st in streams.items()}
         for depth in (0, 1):
-            for fn in counters.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            got, lat = serve(trk, streams, depth)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts = {k: fn.launches for k, fn in counters.items()}
+            (got, lat), seconds, counts = counted(
+                f"serving_{name}_{depth}", lambda: serve(trk, streams, depth))
             require(counts["crop_resize_normalize"] and counts["correlation"],
                     f"serving: a kernel of the path never launched: {counts}")
             fields = {"frames_per_s": len(streams) * SERVE_FRAMES / seconds,
-                      "latency_ms": lat, "launches": counts}
+                      "latency_ms": lat, "launches": counts,
+                      "device_traced": True}
             if name == "exact":
                 tracks = sum(same_emissions(
                     f"serving depth {depth} {sid}", got[sid], want[sid],
@@ -1760,6 +2020,18 @@ def phase_serving(card, dev=None):
         separate_frames_per_s=fps["separate"], ids_valid_equal=True,
         valid_slots=int(sum(o["valid"].sum() for o in outs["separate"])),
         max_abs_diff_exact=diffs, max_abs_diff_path=path_diffs, card=card_f)
+
+    # the four lanes' clip graph against the eager _clip, in turns
+    graph_route(f"serving_c{len(clips)}", tracker, lanes, card_f)
+    for name, trk in (("path", tracker), ("exact", exact)):
+        log("graph", check="serving graphs", nets=name,
+            geometries=[(k[0], k[1], k[6]) for k in trk.graphs],
+            capture_ms=[round(g.capture_ms, 1) for g in trk.graphs.values()],
+            pool_growth_mib=[round(g.pool_bytes / 2 ** 20) for g in
+                             trk.graphs.values()],
+            pool_mib=round(sum(g.pool_bytes for g in trk.graphs.values())
+                           / 2 ** 20), card=card_f)
+    pool_over_frame_sizes(tracker, rng, card_f)
 
     # device events per lane-clip, one lane against four
     per_lane = {}
@@ -2098,12 +2370,14 @@ def phase_int8(card, dev=None):
         card=card_f)
     if not on_card:
         return {}
+    def two_crops_a_clip(launches):
+        require(launches["crop_resize_normalize"] == 2 * CLIPS,
+                f"int8: {launches['crop_resize_normalize']} crop launches "
+                f"for {CLIPS} clips")
+
     launches = drive_path("int8", card, cfg, (FRAME_H, FRAME_W),
                           ("crop_resize_normalize", "int8_gemm"),
-                          models["prequantized"])
-    require(launches["crop_resize_normalize"] == 2 * CLIPS,
-            f"int8: {launches['crop_resize_normalize']} crop launches for "
-            f"{CLIPS} clips")
+                          models["prequantized"], two_crops_a_clip)
     drive_path("int8_base", card, cfg, (FRAME_H, FRAME_W),
                ("crop_resize_normalize",), models["pose_resnet_bf16"])
     fps = SUMMARY["frames_per_s"]
@@ -2113,6 +2387,120 @@ def phase_int8(card, dev=None):
     log("int8", phase_s=time.perf_counter() - t_phase, launches=launches,
         card=card_f)
     return launches
+
+
+def phase_aot(card):
+    """``flowtrack_tpu_torch/aot.py`` on the card: slice 1's and the fused
+    path's clip programs exported for ``cuda`` at full width (AOT_FRAMES
+    float32 frames of FRAME_H x FRAME_W, PERSONS persons) and
+    loaded back; over two chained clips the artifact's outputs and seeds
+    equal the live tracker's (its clip graph) bit for bit, its own seed_out
+    feeding its second call; and the artifact launches the path's kernels
+    (slice 1: crop and correlation; fused: crop and fused_stage). The live
+    tracker runs its first clip before the export and its second after
+    it, and that second run equals the eager ``_clip`` bit for bit: a
+    graph never reads weights that the export made its nets rebuild."""
+    from flowtrack_tpu_torch import aot
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.ops.fused_resnet import fuse_pose_model
+    from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+
+    dev = torch.device("cuda")
+    card_f = f"'{card}'"
+    t_phase = time.perf_counter()
+    base = get_config("coco_res50_256x192")
+    fused_cfg = replace(base, track=replace(base.track, max_persons=PERSONS,
+                                            max_recovered=RECOVERED))
+    rng = np.random.default_rng(SEED + 8)
+    n_frames = 2 * AOT_FRAMES - 1
+    video = rng.integers(0, 256, (n_frames, FRAME_H, FRAME_W, 3),
+                         np.uint8).astype(np.float32)
+    det = video_detections(rng, n_frames, PERSONS, FRAME_H, FRAME_W,
+                           (2.0, 1.0), drop=[(1,), (AOT_FRAMES + 1,)])
+    counters = kernel_counters()
+    for tag, kernels in (("slice", ("crop_resize_normalize", "correlation")),
+                         ("fused", ("crop_resize_normalize", "fused_stage"))):
+        gen = torch.Generator().manual_seed(SEED)
+        if tag == "slice":
+            cfg = slice_config()
+            pose = get_pose_net(cfg.model, dev, gen)
+        else:
+            cfg = fused_cfg
+            pose = fuse_pose_model(cfg.model,
+                                   random_bn_pose_net(cfg.model, dev, gen))
+        # every random-weight candidate kept, so the equality is not empty
+        cfg = replace(cfg, track=replace(cfg.track, pose_score_thre=0.0))
+        tracker = ClipTracker(cfg, pose, get_flow_net(cfg.flow, dev, gen),
+                              max_persons=PERSONS, device=dev)
+        clips = [tracker.prepare(*(x[sl] for x in (video, *det)),
+                                 frame_offset=sl.start)
+                 for sl in (slice(0, AOT_FRAMES),
+                            slice(AOT_FRAMES - 1, n_frames))]
+        # the live tracker captures its graph before the export, which
+        # swaps the nets' tensors (a fused net then checks and transposes
+        # its blocks anew); its next run must read the nets' tensors as
+        # they are after it
+        live1 = tracker.run_prepared(clips[0])
+        graph = next(iter(tracker.graphs.values()))
+        t0 = time.perf_counter()
+        blob = aot.export_clip_program(tracker, AOT_FRAMES,
+                                       (FRAME_H, FRAME_W))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        call = aot.load_clip_program(blob)
+        load_s = time.perf_counter() - t0
+        weights = (tracker.pose_model.state_dict(),
+                   tracker.flow_model.state_dict())
+        live2 = tracker.run_prepared(clips[1], seed=live1[5])
+        recaptured = next(iter(tracker.graphs.values())) is not graph
+        require(recaptured or tag != "fused", "aot fused: the live graph "
+                "was not captured again after the export rebuilt the fused "
+                "net's blocks")
+        eager2 = eager_run(tracker, [x[None] for x in clips[1]],
+                           [live1[5]])
+        for a, b in zip((*live2[:5], *live2[5]),
+                        (*eager2[:5], *eager2[5])):
+            require(torch.equal(a, b[0]), f"aot {tag}: after the export "
+                                          f"the live tracker's graph "
+                                          f"differs from the eager clip")
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.inference_mode():
+            out1 = call(*weights, *clips[0], *tracker.empty_seed())
+            out2 = call(*weights, *clips[1], *out1[5])
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        require(all(launches[k] for k in kernels),
+                f"aot {tag}: a kernel of the path never launched: "
+                f"{launches}")
+        leaves = 0
+        for live, got in ((live1, out1), (live2, out2)):
+            for a, b in zip((*live[:5], *live[5]), (*got[:5], *got[5])):
+                require(torch.equal(a, b), f"aot {tag}: the artifact's "
+                                           f"output differs from the live "
+                                           f"tracker's")
+                leaves += 1
+        require(bool(live2[4].any()), f"aot {tag}: no valid slot")
+        ops = sorted(op for op in call.ops if op.startswith("flowtrack."))
+        want_ops = {"crop_resize_normalize": "flowtrack.crop_frames.default",
+                    "correlation": "flowtrack.correlation.default",
+                    "fused_stage": "flowtrack.fused_stage.default"}
+        require({want_ops[k] for k in kernels} <= set(ops),
+                f"aot {tag}: the program calls {ops}, not every kernel of "
+                f"the path as its op")
+        SUMMARY.setdefault("aot_export_load_s", {})[tag] = (
+            round(export_s, 1), round(load_s, 1))
+        log("aot", path=tag, clips=2, frames_per_clip=AOT_FRAMES,
+            frame_hw=f"{FRAME_H}x{FRAME_W}", export_s=export_s,
+            load_s=load_s, mib=len(blob) / 2 ** 20, kernel_ops=ops,
+            bitwise_leaves=leaves, launches=launches,
+            graph_recaptured_after_export=recaptured,
+            live_graph_equal_to_eager_after_export=True, card=card_f)
+        del tracker, call
+    log("aot", phase_s=time.perf_counter() - t_phase, card=card_f)
 
 
 def int8_closed_loop(cfg, model, dev, card_f):
@@ -2401,23 +2789,29 @@ def write_npz_weights(path, model, convert) -> str:
     return path
 
 
-def run_cli(main, argv, counters, total):
+def run_cli(main, argv, counters, total, traced=False):
     """One CLI run with every launch count set to 0 just before and read
     just after (and added to ``total``); its stdout (its json line, its
-    log) kept out of the smoke's. -> (main's return value, launches,
-    seconds)."""
+    log) kept out of the smoke's. ``traced``: the counts come from the
+    run's device trace (``counted``), as a CLI that tracks clips replays
+    their graphs; else from the wrappers. -> (main's return value,
+    launches, seconds)."""
     import contextlib
     import io
 
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        out = main(argv)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return main(argv)
+
+    if traced:
+        out, seconds, launches = counted(argv[0], run)
+    else:
+        t0 = time.perf_counter()
+        out = zero_counts(run)()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
         total[k] += n
     return out, launches, seconds
@@ -2563,6 +2957,9 @@ def phase_eval(card, dev=None):
     card_f = f"'{card}'"
     counters = kernel_counters()
     total = dict.fromkeys(counters, 0)
+    # the CLIs that track clips replay their graphs on the card: their
+    # launches come from the device trace
+    on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
     pt_opts = ["flow.variant=flownet_c", "track.pose_score_thre=0.0"]
     pt_cfg = cli_config("flowtrack_posetrack", pt_opts)
@@ -2617,7 +3014,7 @@ def phase_eval(card, dev=None):
                     "--flow-weights", flownet_c, "--out", str(out_dir),
                     "--engine", engine, "--device", dev.type, *pt_opts,
                     f"data.root={root}", "data.test_set=val"], counters,
-                    total)
+                    total, traced=on_card and engine == "clip")
                 require(launches["crop_resize_normalize"] > 0
                         and launches["correlation"] > 0,
                         f"track --engine {engine}: K1 or K2 never launched: "
@@ -2680,7 +3077,7 @@ def phase_eval(card, dev=None):
             "--flow-weights", flownet_c, "--video", *videos,
             "--detections", *dets, "--out", str(tmp / "video"),
             "--clip-len", str(EVAL_FRAMES), "--device", dev.type, *pt_opts],
-            counters, total)
+            counters, total, traced=on_card)
         require(launches["crop_resize_normalize"] > 0
                 and launches["correlation"] > 0,
                 f"track_video: K1 or K2 never launched: {launches}")
@@ -3467,8 +3864,10 @@ def main() -> int:
     int8 = phase_int8(card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    phase_tracking("flownet_c", (FRAME_H, FRAME_W))
-    phase_tracking("flownet2", (FN2_H, FN2_W))
+    phase_aot(card)
+    torch.cuda.empty_cache()
+    phase_tracking(card, "flownet_c", (FRAME_H, FRAME_W))
+    phase_tracking(card, "flownet2", (FN2_H, FN2_W))
     torch.cuda.synchronize()
     eval_ = phase_eval(card)
     torch.cuda.synchronize()

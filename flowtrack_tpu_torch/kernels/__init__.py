@@ -3,7 +3,8 @@
 The kernels are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
 process per source, all started together, and linked into one shared
 library with a plain C interface under ``build/flowtrack_tpu_torch/`` beside
-the package, at first use and again whenever a source or a flag changes
+the package (``build_dir``: the user's cache directory when that cannot be
+written, as in an installed package), at first use and again whenever a source or a flag changes
 (the file name carries their hash); ``ptxas -v`` reports each kernel's
 registers, spills and shared memory into ``<library>.ptxas.txt`` beside it.
 The library is loaded with
@@ -30,7 +31,31 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("crop.cu", "correlation.cu", "resample2d.cu", "fused_stage.cu")
 HEADERS = ("hopper.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "flowtrack_tpu_torch"
+CHECKOUT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                      / "flowtrack_tpu_torch")
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` can be made or written: its nearest existing
+    ancestor is a writable directory."""
+    while not path.exists() and path != path.parent:
+        path = path.parent
+    return path.is_dir() and os.access(path, os.W_OK)
+
+
+def build_dir(default: Path = CHECKOUT_BUILD_DIR) -> Path:
+    """Where the kernels and the native NMS are built: ``default``
+    (``build/flowtrack_tpu_torch`` beside the package, in a checkout) when
+    it can be written, else ``flowtrack_tpu_torch`` in the user's cache
+    directory ($XDG_CACHE_HOME, or ~/.cache)."""
+    if _writable(default):
+        return default
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "flowtrack_tpu_torch"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -521,8 +521,9 @@ def postprocess_flow(flow_out, variant: str, out_hw, div_flow: float = 20.0):
         fh, fw = fh * 4, fw * 4
     oh, ow = out_hw
     flow = resize_bilinear(flow_out, (oh, ow))
-    scale = torch.tensor([ow / fw, oh / fh], dtype=torch.float32,
-                         device=flow.device)
+    # filled on the device: no copy from the host inside a clip
+    scale = torch.stack([flow.new_full((), ow / fw, dtype=torch.float32),
+                         flow.new_full((), oh / fh, dtype=torch.float32)])
     return flow * scale
 
 

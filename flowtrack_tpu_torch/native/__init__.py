@@ -3,7 +3,9 @@
 Port of ``flowtrack_tpu/native/__init__.py`` (:28-128) over the port's own
 copy of ``nms.cc``. The source is compiled with ``g++`` at first use (a
 plain C interface bound through ctypes, no Python.h) into
-``build/flowtrack_tpu_torch/`` beside the package, under a name that
+the kernels' build directory (``kernels.build_dir``:
+``build/flowtrack_tpu_torch/`` beside the package, or the user's cache
+directory when that cannot be written), under a name that
 carries the source's hash, so an edited source is built again; nothing is
 written beside the source. This is host code, not a card kernel: without
 ``g++`` (or the source) the numpy versions of ``ops/nms.py`` answer, with

@@ -24,8 +24,13 @@ one pass over the D*D displacements with no forward recomputed. The
 backward runs in the forward's autocast state and returns each gradient
 in its feature's dtype.
 
-Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel of its dtype (``correlation_route``), or the wrapper raises.
+Dispatch: the forward is the custom op ``flowtrack::correlation``
+(``torch.ops.flowtrack.correlation``), which a CUDA graph capture and
+``torch.export`` see as one node. Its implementation applies the module's
+rule ``_runs_kernel``: a CPU tensor goes to the plain version; a CUDA
+tensor goes to the kernel of its dtype (``correlation_route``), or the
+wrapper raises. Its fake implementation gives the volume's shape, dtype
+and strides.
 """
 
 from __future__ import annotations
@@ -186,22 +191,40 @@ def _runs_kernel(t) -> bool:
     return t.device.type != "cpu"
 
 
+@torch.library.custom_op("flowtrack::correlation", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _correlation_op(f1: torch.Tensor, f2: torch.Tensor,
+                    max_displacement: int, stride2: int) -> torch.Tensor:
+    if _runs_kernel(f1):
+        return correlation_cuda(f1.contiguous(), f2.contiguous(),
+                                max_displacement, stride2)
+    out = correlation_plain(f1.permute(0, 2, 3, 1), f2.permute(0, 2, 3, 1),
+                            max_displacement, stride2)
+    return out.permute(0, 3, 1, 2)
+
+
+@_correlation_op.register_fake
+def _(f1, f2, max_displacement, stride2):
+    n, _, h, w = f1.shape
+    dd = len(displacement_grid(max_displacement, stride2)) ** 2
+    dt = _sum_dtype(f1.dtype)
+    if _runs_kernel(f1):
+        return f1.new_empty((n, dd, h, w), dtype=dt)
+    # the plain version stacks the displacements last
+    return f1.new_empty((n, h, w, dd), dtype=dt).permute(0, 3, 1, 2)
+
+
 class _Correlation(torch.autograd.Function):
-    """The cost volume with its gradient: the kernel (or, for CPU tensors,
-    the plain version) forward, ``correlation_backward`` backward."""
+    """The cost volume with its gradient: the op forward (the kernel, or
+    for CPU tensors the plain version), ``correlation_backward``
+    backward."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, f1, f2, max_displacement, stride2):
         ctx.save_for_backward(f1, f2)
         ctx.geometry = (max_displacement, stride2)
-        if _runs_kernel(f1):
-            return correlation_cuda(f1.contiguous(), f2.contiguous(),
-                                    max_displacement, stride2)
-        out = correlation_plain(f1.permute(0, 2, 3, 1),
-                                f2.permute(0, 2, 3, 1), max_displacement,
-                                stride2)
-        return out.permute(0, 3, 1, 2)
+        return _correlation_op(f1, f2, max_displacement, stride2)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")

@@ -12,8 +12,12 @@ frame index per crop, so every crop of a pose pass is one kernel launch and
 no other device operation: the kernel works out ``crop_params`` itself from
 the centers and scales, rounded as this module's ``crop_params`` rounds them.
 
-Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the wrapper raises.
+Dispatch: ``crop_frames`` calls the custom op ``flowtrack::crop_frames``
+(``torch.ops.flowtrack.crop_frames``), which a CUDA graph capture and
+``torch.export`` see as one node. The op's implementation sends a CPU
+tensor to the plain version and a CUDA tensor to the kernel's wrapper, which
+launches it or raises; its fake implementation gives the output's shape,
+dtype and strides.
 """
 
 from __future__ import annotations
@@ -150,18 +154,50 @@ def crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
 crop_frames_cuda.launches = 0
 
 
+@torch.library.custom_op("flowtrack::crop_frames", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _crop_frames_op(frames: torch.Tensor, frame_idx: torch.Tensor,
+                    centers: torch.Tensor, scales: torch.Tensor,
+                    out_hw: Sequence[int], mean: Optional[Sequence[float]],
+                    std: Optional[Sequence[float]], rgb_max: float,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    if frames.device.type == "cpu":
+        # the kernel's layout, (P, C, h, w) memory under an NHWC view
+        out = crop_frames_plain(frames, frame_idx, centers, scales, out_hw,
+                                mean, std, rgb_max, out_dtype)
+        return out.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
+                            mean, std, rgb_max, out_dtype)
+
+
+@_crop_frames_op.register_fake
+def _(frames, frame_idx, centers, scales, out_hw, mean, std, rgb_max,
+      out_dtype):
+    p, (out_h, out_w), c = centers.shape[0], out_hw, frames.shape[3]
+    return frames.new_empty((p, c, out_h, out_w),
+                            dtype=out_dtype).permute(0, 2, 3, 1)
+
+
 def crop_frames(frames, frame_idx, centers, scales, out_hw,
                 mean: Optional[Sequence[float]] = None,
                 std: Optional[Sequence[float]] = None,
                 rgb_max: float = 255.0, out_dtype=torch.float32):
     """frames (F, H, W, C); frame_idx (P,); centers/scales (P, 2)
-    -> (P, out_h, out_w, C) crops of ``frames[frame_idx]``, normalized as
-    ``(x / rgb_max - mean) / std`` when ``mean`` is given."""
-    if frames.device.type == "cpu":
-        return crop_frames_plain(frames, frame_idx, centers, scales, out_hw,
-                                 mean, std, rgb_max, out_dtype)
-    return crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
-                            mean, std, rgb_max, out_dtype)
+    -> (P, out_h, out_w, C) crops of ``frames[frame_idx]``, the NHWC view
+    of (P, C, out_h, out_w) memory on either device, normalized as
+    ``(x / rgb_max - mean) / std`` when ``mean`` is given. Index, center
+    and scale arrays that are not yet tensors on the frames' device are
+    made so first."""
+    dev = frames.device
+    idx = torch.as_tensor(frame_idx, device=dev)
+    if idx.dtype not in (torch.int64, torch.int32):
+        idx = idx.long()
+    return _crop_frames_op(
+        frames, idx, torch.as_tensor(centers, dtype=torch.float32, device=dev),
+        torch.as_tensor(scales, dtype=torch.float32, device=dev),
+        tuple(out_hw), None if mean is None else [float(v) for v in mean],
+        None if std is None else [float(v) for v in std], float(rgb_max),
+        out_dtype)
 
 
 def crop_resize_normalize(image, centers, scales, out_hw, mean=None,

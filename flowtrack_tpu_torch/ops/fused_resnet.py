@@ -174,29 +174,37 @@ def block_conv(x, blk: dict, stride: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_block(blk: dict, cin: int, device) -> None:
-    keys = _BLOCK_KEYS + (_PROJ_KEYS if "wd" in blk else ())
-    if set(blk) != set(keys):
-        raise ValueError(f"a block holds {keys}, got {sorted(blk)}")
-    f = blk["w1"].shape[1]
-    cout = blk["w3"].shape[1]
-    shapes = {"w1": (cin, f), "b1": (1, f), "w2": (3, 3 * f, f),
-              "b2": (1, f), "w3": (f, cout), "b3": (1, cout),
-              "wd": (cin, cout), "bd": (1, cout)}
-    for k in keys:
-        v = blk[k]
+def _check_tensors(named: dict, shapes: dict, device) -> None:
+    """Weights (keys starting with w) contiguous bfloat16, biases float32,
+    all on ``device`` and of the given shapes."""
+    for k, v in named.items():
         dtype = _BF16 if k[0] == "w" else torch.float32
         if v.device != device or v.dtype != dtype or not v.is_contiguous():
             raise TypeError(f"{k} must be a contiguous {dtype} tensor on "
                             f"{device}, got {v.dtype} on {v.device}")
         if tuple(v.shape) != shapes[k]:
             raise ValueError(f"{k} must be {shapes[k]}, got {tuple(v.shape)}")
-    if "wd" not in blk and cout != cin:
+
+
+def _check_widths(cin: int, f: int, cout: int, proj: bool) -> None:
+    if not proj and cout != cin:
         raise ValueError(f"a block without projection keeps its width, got "
                          f"{cin} -> {cout}")
     if cin % 64 or f % 64:
         raise ValueError(f"the kernel takes channel counts that are "
                          f"multiples of 64, got Cin {cin}, F {f}")
+
+
+def _check_block(blk: dict, cin: int, device) -> None:
+    keys = _BLOCK_KEYS + (_PROJ_KEYS if "wd" in blk else ())
+    if set(blk) != set(keys):
+        raise ValueError(f"a block holds {keys}, got {sorted(blk)}")
+    f = blk["w1"].shape[1]
+    cout = blk["w3"].shape[1]
+    _check_tensors(blk, {"w1": (cin, f), "b1": (1, f), "w2": (3, 3 * f, f),
+                         "b2": (1, f), "w3": (f, cout), "b3": (1, cout),
+                         "wd": (cin, cout), "bd": (1, cout)}, device)
+    _check_widths(cin, f, cout, "wd" in blk)
 
 
 def transposed_weights(blk: dict) -> dict:
@@ -344,26 +352,126 @@ def _launched(err: int) -> None:
     fused_stage_cuda.launches += 1
 
 
-def _block_per_conv(lib, stream, x, blk, wt, form, out):
-    """One block as three wgmma launches (``wt``: its transposed weights)."""
+_PARAM_KEYS = ("w1t", "b1", "w2t", "b2", "w3t", "b3")
+
+
+def stage_params(blocks: Sequence[dict]):
+    """A chain's tensors as the op ``flowtrack::fused_stage`` takes them:
+    per block its transposed weights and its biases, (w1t, b1, w2t, b2,
+    w3t, b3[, wdt, bd]), in one list, and whether each block has a
+    projection. A ``CheckedBlocks`` gives the transposes it keeps; other
+    blocks are transposed here, unchecked (the op's card route checks)."""
+    params, projection = [], []
+    for i, blk in enumerate(blocks):
+        wt = (blocks.transposed(i) if isinstance(blocks, CheckedBlocks)
+              else transposed_weights(blk))
+        params += [wt["w1t"], blk["b1"], wt["w2t"], blk["b2"], wt["w3t"],
+                   blk["b3"]]
+        if "wd" in blk:
+            params += [wt["wdt"], blk["bd"]]
+        projection.append("wd" in blk)
+    return params, projection
+
+
+def _unpack_params(x, params, projection) -> list:
+    """``stage_params``' list -> one dict of the kernel's tensors a block,
+    each checked against the chain's widths and ``x``'s device."""
+    blocks, i, cin = [], 0, x.shape[-1]
+    for proj in projection:
+        keys = _PARAM_KEYS + (("wdt", "bd") if proj else ())
+        if i + len(keys) > len(params):
+            raise ValueError(f"{len(params)} tensors for the blocks "
+                             f"{projection}")
+        p = dict(zip(keys, params[i:i + len(keys)]))
+        i += len(keys)
+        f, cout = p["w1t"].shape[0], p["w3t"].shape[0]
+        _check_tensors(p, {"w1t": (f, cin), "b1": (1, f), "w2t": (f, 9 * f),
+                           "b2": (1, f), "w3t": (cout, f), "b3": (1, cout),
+                           "wdt": (cout, cin), "bd": (1, cout)}, x.device)
+        _check_widths(cin, f, cout, proj)
+        blocks.append(p)
+        cin = cout
+    if i != len(params):
+        raise ValueError(f"{len(params)} tensors for the blocks {projection}")
+    return blocks
+
+
+def _plain_blocks(params, projection) -> list:
+    """``stage_params``' list -> the block dicts of the plain version, the
+    transposes undone into contiguous weights (exact: the same tensors)."""
+    def back(wt):
+        return wt.t().contiguous()
+
+    blocks, i = [], 0
+    for proj in projection:
+        w1t, b1, w2t, b2, w3t, b3 = params[i:i + 6]
+        f = w1t.shape[0]
+        blk = {"w1": back(w1t), "b1": b1,
+               "w2": back(w2t).reshape(3, 3 * f, f), "b2": b2,
+               "w3": back(w3t), "b3": b3}
+        i += 6
+        if proj:
+            blk.update(wd=back(params[i]), bd=params[i + 1])
+            i += 2
+        blocks.append(blk)
+    return blocks
+
+
+def _block_per_conv(lib, stream, x, p, form, out):
+    """One block as three wgmma launches (``p``: the block's tensors as
+    ``_unpack_params`` gives them)."""
     b, h, w, cin = x.shape
     m = b * h * w
-    f, cout = blk["w1"].shape[1], blk["w3"].shape[1]
-    proj = "wd" in blk
+    f, cout = p["w1t"].shape[0], p["w3t"].shape[0]
+    proj = "wdt" in p
     y1 = torch.empty((m, f), dtype=_BF16, device=x.device)
     y2 = torch.empty((m, f), dtype=_BF16, device=x.device)
     res = None if proj else x
     conv = lib.ft_fused_conv_wgmma
-    w1, w2, w3, wd = wt["w1t"], wt["w2t"], wt["w3t"], wt.get("wdt")
     tile = (form.rows, form.images)
-    a2, bd, k2 = (x, blk["bd"], cin) if proj else (None, None, 0)
-    _launched(conv(_ptr(x), _ptr(w1), _ptr(blk["b1"]), None, None, None, None,
-                   _ptr(y1), m, f, cin, cin, 0, h, w, 1, *tile, stream))
-    _launched(conv(_ptr(y1), _ptr(w2), _ptr(blk["b2"]), None, None, None,
+    a2, bd, k2 = (x, p["bd"], cin) if proj else (None, None, 0)
+    _launched(conv(_ptr(x), _ptr(p["w1t"]), _ptr(p["b1"]), None, None, None,
+                   None, _ptr(y1), m, f, cin, cin, 0, h, w, 1, *tile, stream))
+    _launched(conv(_ptr(y1), _ptr(p["w2t"]), _ptr(p["b2"]), None, None, None,
                    None, _ptr(y2), m, f, 9 * f, f, 0, h, w, 9, *tile, stream))
-    _launched(conv(_ptr(y2), _ptr(w3), _ptr(blk["b3"]), _ptr(res), _ptr(a2),
-                   _ptr(wd), _ptr(bd), _ptr(out), m, cout, f, f, k2, h, w, 1,
-                   *tile, stream))
+    _launched(conv(_ptr(y2), _ptr(p["w3t"]), _ptr(p["b3"]), _ptr(res),
+                   _ptr(a2), _ptr(p.get("wdt")), _ptr(bd), _ptr(out), m,
+                   cout, f, f, k2, h, w, 1, *tile, stream))
+
+
+def _check_input(x) -> None:
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_stage kernel needs CUDA tensors, got "
+                           f"{x.device}")
+    if x.dim() != 4 or x.dtype != _BF16 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (B, H, W, C) bfloat16 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError("x is empty")
+
+
+def _launch_stage(x, blocks: list):
+    """Launch K5 over ``_unpack_params``' blocks, each in the form
+    ``block_form`` gives its shape."""
+    b, h, w, _ = x.shape
+    m = b * h * w
+    lib = kernels.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for p in blocks:
+        cin = x.shape[-1]
+        f, cout = p["w1t"].shape[0], p["w3t"].shape[0]
+        form = block_form(h, w, f, "wdt" in p)
+        out = torch.empty((b, h, w, cout), dtype=_BF16, device=x.device)
+        if form.kind == "block":
+            _launched(lib.ft_fused_block(
+                _ptr(x), _ptr(p["w1t"]), _ptr(p["b1"]), _ptr(p["w2t"]),
+                _ptr(p["b2"]), _ptr(p["w3t"]), _ptr(p["b3"]),
+                _ptr(p.get("wdt")), _ptr(p.get("bd")), _ptr(out), m, cin,
+                f, h, w, form.rows, stream))
+        else:
+            _block_per_conv(lib, stream, x, p, form, out)
+        x = out
+    return x
 
 
 def fused_stage_cuda(x, blocks: Sequence[dict]):
@@ -373,60 +481,46 @@ def fused_stage_cuda(x, blocks: Sequence[dict]):
     block, or one per conv (conv1, the implicit 3x3 GEMM, conv3 with the
     residual or the projection in its epilogue). ``blocks``: block dicts,
     checked (and their weights transposed for wgmma) on each call, or a
-    ``CheckedBlocks``, which does both once."""
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_stage kernel needs CUDA tensors, got "
-                           f"{x.device}")
-    if x.dim() != 4 or x.dtype != _BF16 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous (B, H, W, C) bfloat16 "
-                         f"tensor, got {x.dtype} {tuple(x.shape)}")
-    b, h, w, cin = x.shape
-    m = b * h * w
-    if m == 0:
-        raise ValueError("x is empty")
+    ``CheckedBlocks``, which does both once; every tensor is held to
+    ``x``'s width and device before any launch (``_unpack_params``)."""
+    _check_input(x)
     if not isinstance(blocks, CheckedBlocks):
         blocks = CheckedBlocks(blocks)
-    if blocks and (blocks[0]["w1"].shape[0] != cin
-                   or blocks[0]["w1"].device != x.device):
-        raise ValueError(f"the blocks take {blocks[0]['w1'].shape[0]} "
-                         f"channels on {blocks[0]['w1'].device}, got {cin} "
-                         f"on {x.device}")
-    lib = kernels.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    for i, blk in enumerate(blocks):
-        cin = x.shape[-1]
-        f, cout = blk["w1"].shape[1], blk["w3"].shape[1]
-        form = block_form(h, w, f, "wd" in blk)
-        out = torch.empty((b, h, w, cout), dtype=_BF16, device=x.device)
-        wt = blocks.transposed(i)
-        if form.kind == "block":
-            _launched(lib.ft_fused_block(
-                _ptr(x), _ptr(wt["w1t"]), _ptr(blk["b1"]), _ptr(wt["w2t"]),
-                _ptr(blk["b2"]), _ptr(wt["w3t"]), _ptr(blk["b3"]),
-                _ptr(wt.get("wdt")), _ptr(blk.get("bd")), _ptr(out), m, cin,
-                f, h, w, form.rows, stream))
-        else:
-            _block_per_conv(lib, stream, x, blk, wt, form, out)
-        x = out
-    return x
+    params, projection = stage_params(blocks)
+    return _launch_stage(x, _unpack_params(x, params, projection))
 
 
 fused_stage_cuda.launches = 0
 
 
+@torch.library.custom_op("flowtrack::fused_stage", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _fused_stage_op(x: torch.Tensor, params: Sequence[torch.Tensor],
+                    projection: Sequence[bool]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return fused_stage_plain(x, _plain_blocks(params, projection), 1)
+    _check_input(x)
+    return _launch_stage(x, _unpack_params(x, params, projection))
+
+
+@_fused_stage_op.register_fake
+def _(x, params, projection):
+    cout = params[-2].shape[0] if projection else x.shape[-1]
+    return x.new_empty((*x.shape[:3], cout))
+
+
 def fused_stage(x, blocks: Sequence[dict], stride: int):
     """Public entry (``fused_stage_pallas``): a striding first block through
-    ``block_conv``, the stride-1 blocks through the kernel (CUDA tensor) or
-    the plain version (CPU tensor). x (B, H, W, Cin) bfloat16."""
+    ``block_conv``, the stride-1 blocks through the op
+    ``flowtrack::fused_stage``: the kernel (CUDA tensor) or the plain
+    version (CPU tensor). x (B, H, W, Cin) bfloat16."""
     rest = blocks
     if stride != 1:
         x = block_conv(x, blocks[0], stride)
         rest = blocks[1:]
     if not rest:
         return x
-    if x.device.type == "cpu":
-        return fused_stage_plain(x, rest, 1)
-    return fused_stage_cuda(x.contiguous(), rest)
+    return _fused_stage_op(x.contiguous(), *stage_params(rest))
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +619,7 @@ class FusedPoseResNet(nn.Module):
         self.final = _conv_node((cfg.num_joints, inplanes, fk, fk),
                                 cfg.num_joints, device)
         self._checked = None
+        self._held = []
 
     def _apply(self, *args, **kwargs):
         self._checked = None
@@ -534,12 +629,21 @@ class FusedPoseResNet(nn.Module):
         self._checked = None
         return super().load_state_dict(*args, **kwargs)
 
+    def _stage_tensors(self) -> list:
+        return [t for stage in self.stages for blk in stage
+                for t in blk._buffers.values()]
+
     def stage_blocks(self) -> list:
-        """Each stage's block dicts as ``CheckedBlocks``, kept until the
-        buffers are moved or loaded again."""
-        if self._checked is None:
+        """Each stage's block dicts as ``CheckedBlocks``, kept while the
+        stages hold the same tensors: made again after the buffers were
+        moved or loaded, or while ``torch.func.functional_call`` swaps them
+        (an export with the weights as call arguments)."""
+        current = self._stage_tensors()
+        if self._checked is None or len(current) != len(self._held) or any(
+                a is not b for a, b in zip(current, self._held)):
             self._checked = [CheckedBlocks(blk.tensors() for blk in stage)
                              for stage in self.stages]
+            self._held = current
         return self._checked
 
     def kernel_launches(self, image_hw) -> int:

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flowtrack_tpu_torch.ops import cached_constant
+
 
 def _target_geometry(heatmap_hw, image_hw, sigma):
     hm_h, hm_w = heatmap_hw
@@ -78,13 +80,22 @@ def generate_target_np(joints, joints_vis, heatmap_hw, image_hw, sigma):
     return target, weight
 
 
-def flip_back(heatmaps, flip_pairs):
-    """Mirror W, then swap each (left, right) joint channel pair. NHWK."""
-    k = heatmaps.shape[-1]
+_FLIP_INDEX: dict = {}
+
+
+def _flip_index(k: int, flip_pairs: tuple, device: torch.device):
+    """The joint permutation of ``flip_back``, made on ``device`` once."""
     perm = list(range(k))
     for a, b in flip_pairs:
         perm[a], perm[b] = b, a
-    index = torch.tensor(perm, device=heatmaps.device)
+    return cached_constant(_FLIP_INDEX, (k, flip_pairs, device),
+                           lambda: torch.tensor(perm, device=device))
+
+
+def flip_back(heatmaps, flip_pairs):
+    """Mirror W, then swap each (left, right) joint channel pair. NHWK."""
+    index = _flip_index(heatmaps.shape[-1],
+                        tuple(tuple(p) for p in flip_pairs), heatmaps.device)
     return heatmaps.flip(2).index_select(-1, index)
 
 

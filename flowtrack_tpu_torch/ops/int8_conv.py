@@ -82,7 +82,9 @@ def patch_matrix(x, k: int, stride: int, k_cols: int):
         return win.reshape(m, kkc)
     out = x.new_empty((*win.shape[:3], k_cols))
     out[..., :kkc].unflatten(-1, (k, k, c)).copy_(win)
-    out[..., kkc:] = 0
+    # zero_, not ``= 0``: assigning a number makes a host tensor and reads
+    # it back (aten::_local_scalar_dense), a host sync on every forward
+    out[..., kkc:].zero_()
     return out.reshape(m, k_cols)
 
 

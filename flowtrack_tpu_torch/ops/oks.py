@@ -17,22 +17,27 @@ The tensor functions take leading batch dimensions (one per clip lane).
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 
 from flowtrack_tpu_torch.config import COCO_SIGMAS
+from flowtrack_tpu_torch.ops import cached_constant
 
 _SPACING = float(np.spacing(1))
 
 
-@functools.lru_cache(maxsize=None)
+_VARS: dict = {}
+
+
 def _vars(sigmas: tuple, device: torch.device):
     """(2 sigma)^2 per keypoint, made on ``device`` once (no per-call copy
     from the host inside the tracker's scans)."""
-    s = torch.tensor(sigmas, dtype=torch.float32, device=device)
-    return (s * 2.0) ** 2
+    def make():
+        s = torch.tensor(sigmas, dtype=torch.float32, device=device)
+        return (s * 2.0) ** 2
+
+    return cached_constant(_VARS, (sigmas, device), make)
 
 
 def _var(sigmas, device):

@@ -37,8 +37,11 @@ the frame, 0 outside, and 1/2 on the frame's edge, as ``jnp.clip`` splits a
 tie (a zero flow on the left or top edge sits on one); ``floor`` and the
 anchor's ``min(., W-2)`` carry none.
 
-Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel, or the wrapper raises.
+Dispatch: the forward is the custom op ``flowtrack::resample2d``
+(``torch.ops.flowtrack.resample2d``), which a CUDA graph capture and
+``torch.export`` see as one node. Its implementation applies the module's
+rule ``_runs_kernel``: a CPU tensor goes to the plain version; a CUDA
+tensor goes to the kernel, or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -176,17 +179,28 @@ def _runs_kernel(t) -> bool:
     return t.device.type != "cpu"
 
 
+@torch.library.custom_op("flowtrack::resample2d", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _resample2d_op(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    if _runs_kernel(img):
+        return resample2d_cuda(img.contiguous(), flow.contiguous())
+    return resample2d_plain(img, flow).contiguous()
+
+
+@_resample2d_op.register_fake
+def _(img, flow):
+    return img.new_empty(img.shape)
+
+
 class _Resample2d(torch.autograd.Function):
-    """The warp with its gradient: the kernel (or, for CPU tensors, the
-    plain version) forward, ``resample2d_backward`` backward."""
+    """The warp with its gradient: the op forward (the kernel, or for CPU
+    tensors the plain version), ``resample2d_backward`` backward."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, img, flow):
         ctx.save_for_backward(img, flow)
-        if _runs_kernel(img):
-            return resample2d_cuda(img.contiguous(), flow.contiguous())
-        return resample2d_plain(img, flow)
+        return _resample2d_op(img, flow)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")

@@ -27,20 +27,30 @@ per-frame scans carry the C lanes in each step, so their launches per
 lane-frame fall by C. The recovery budget and its top-k are per lane; no
 pair, match or id crosses lanes. One clip is the case C = 1.
 
-The batched calls run as PyTorch ops on one stream; the per-frame scans of
-stages 3 and 4 are a Python loop of small tensor ops that never syncs with
-the host (no ``.item()``, no branch on a device value), so the host only
-queues work until ``to_host`` copies the result back. Each stage runs in a
-``torch.profiler.record_function`` range named ``clip.<stage>``, so a
-profile attributes the clip's time to its stages.
+``_clip`` is the clip program: PyTorch ops on one stream, the per-frame
+scans of stages 3 and 4 a Python loop of small tensor ops. It never syncs
+with the host and takes no data from it (no ``.item()``, no branch on a
+device value, no tensor made from host data), and ``real_frames`` is a
+device int32 scalar, as the reference's traced argument is. So on a CUDA
+device ``run_prepared_lanes`` replays it as one CUDA graph, the
+counterpart of the reference's ``jax.jit(clip_fn)`` (:441) and its vmapped
+``_clips_fn`` (:445): one ``ClipGraph`` per geometry (lanes, frames,
+persons, frame size, the frames' dtype, padded or not), captured at first
+use into the tracker's one memory pool, and captured again after the nets'
+tensors changed (a net moved, loaded or replaced). On the CPU ``_clip``
+runs eagerly; the eager ``_clip`` is the graph's plain version. Each
+stage runs in a ``torch.profiler.record_function`` range named
+``clip.<stage>``, which a profile of the eager ``_clip`` shows (a replayed
+graph has no host ranges).
 
-Differences from the reference: it runs eagerly, not as one compiled
-program; ``real_frames`` is a plain int, shared by every lane;
+Differences from the reference: ``real_frames`` is shared by every lane;
 ``frame_sharding`` and ``track_clips``' ``sharding`` are not ported yet.
 """
 
 from __future__ import annotations
 
+import gc
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -61,6 +71,7 @@ from flowtrack_tpu_torch.models.flownet import (
 from flowtrack_tpu_torch.models.layers import torch_dtype
 from flowtrack_tpu_torch.ops.crop import crop_frames
 from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
+from flowtrack_tpu_torch.ops.fused_resnet import FusedPoseResNet
 from flowtrack_tpu_torch.ops.nms import iou_matrix
 from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
 from flowtrack_tpu_torch.pipeline import (
@@ -129,6 +140,107 @@ def _take(x, idx):
     return x.gather(1, idx.expand(*idx.shape[:2], *x.shape[2:]))
 
 
+def recovery_rank_limit(real_frames, f: int, r: int, recover_budget: float):
+    """The recovery budget of ``real_frames`` real frames of a clip padded
+    to ``f``: min(f * r, max(r, ceil(float32(real) * float32(budget)))) as
+    a device int32 scalar, from the device int32 scalar ``real_frames``
+    (the reference's traced arithmetic, clip_pipeline.py:297)."""
+    real = real_frames.float()
+    eff = torch.ceil(real * real.new_full((), recover_budget))
+    return eff.clamp(min=r, max=f * r).to(torch.int32)
+
+
+def real_frames_scalar(budget_frames: int, f: int, device):
+    """The real frame count ``budget_frames`` (an int in 1..f) of a padded
+    clip as the clip program's ``real_frames``: a device int32 scalar,
+    filled on the device (no copy from the host)."""
+    if not 1 <= budget_frames <= f:
+        raise ValueError(f"real_frames must be in 1..{f}, got "
+                         f"{budget_frames}")
+    return torch.full((), budget_frames, dtype=torch.int32, device=device)
+
+
+def clip_state(*nets) -> list:
+    """What a captured clip reads of its nets beside its inputs: their
+    parameters and buffers, and a fused net's checked blocks, which keep
+    the transposed weights that its kernel launches read."""
+    state = []
+    for net in nets:
+        # every module's own tensors, walked without named_modules' prefix
+        # strings: this runs before each replay
+        stack = [net]
+        while stack:
+            m = stack.pop()
+            state += [t for t in (*m._parameters.values(),
+                                  *m._buffers.values()) if t is not None]
+            stack += m._modules.values()
+        if isinstance(net, FusedPoseResNet):
+            state += net.stage_blocks()
+    return state
+
+
+def state_key(state) -> tuple:
+    """Identity of ``clip_state``'s objects and of the memory each tensor
+    holds: it changes when a net is replaced, moved or loaded (a fused net
+    then checks and transposes its blocks anew)."""
+    return tuple((id(o), o.data_ptr() if isinstance(o, torch.Tensor) else 0)
+                 for o in state)
+
+
+class ClipGraph:
+    """One geometry's clip program captured as a CUDA graph.
+
+    ``inputs`` are static device buffers that each ``run`` fills by
+    ``copy_`` (the prepared args, the six seed leaves and, for a padded
+    clip, ``real``, the real frame count); ``outputs`` is the captured
+    result, which the next replay overwrites, so ``run`` returns clones.
+    Capture follows one eager warm-up run on the capture's side stream, so
+    that library handles and workspaces, cuDNN's algorithm choice and the
+    kernels' first ``cudaFuncSetAttribute`` happen outside it. ``held``
+    keeps the nets' tensors that the capture read (``clip_state``), so
+    none of them is freed while the graph exists. The capture allocates
+    from ``pool`` on ``stream``, which a tracker's graphs share (they
+    replay one after another on one stream, and each replay's outputs are
+    cloned before the next; a cached block serves only the stream it was
+    allocated on); ``pool_bytes`` is what the pool grew by. A capture that
+    fails raises; there is no eager fallback."""
+
+    def __init__(self, clip_fn, args, real_frames, state, pool, stream):
+        dev = args[0].device
+        self.held = [o.detach() if isinstance(o, torch.Tensor) else o
+                     for o in state]
+        self.inputs = [a.clone() for a in args]
+        self.real = None if real_frames is None else real_frames.clone()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            clip_fn(*self.inputs, real_frames=self.real)
+        stream.synchronize()
+        # torch.cuda.graph empties the allocator's cache on entry; doing it
+        # first leaves what the capture reserves as the pool's growth
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            out = clip_fn(*self.inputs, real_frames=self.real)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.outputs = (*out[:5], *out[5])
+
+    def run(self, args, real_frames=None):
+        """Fill the inputs, replay, and return clones of the outputs in
+        ``_clip``'s structure."""
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        if self.real is not None:
+            self.real.copy_(real_frames)
+        self.graph.replay()
+        out = [t.clone() for t in self.outputs]
+        return (*out[:5], tuple(out[5:]))
+
+
 class ClipTracker:
     """Batched-clip FlowTrack on one device. All frames share one (H, W).
 
@@ -155,6 +267,12 @@ class ClipTracker:
         self.num_joints = cfg.model.num_joints
         self.pose_model = pose_model.to(device).eval()
         self.flow_model = flow_model.to(device).eval()
+        # the CUDA graphs of the clip program, by geometry, all captured
+        # while the nets held the tensors ``_state_key`` names, into one
+        # memory pool on one capture stream
+        self.graphs: dict = {}
+        self._state_key = None
+        self._capture = None
 
     # ---- stage 2 building blocks
     def _pose_heatmaps(self, crops):
@@ -245,9 +363,8 @@ class ClipTracker:
             if real_frames is not None:
                 # the budget of the real frame count; top-k is sorted, so a
                 # rank mask reproduces the unpadded run's smaller selection
-                eff = min(f * r, max(r, int(np.ceil(
-                    np.float32(real_frames)
-                    * np.float32(tcfg.recover_budget)))))
+                eff = recovery_rank_limit(real_frames, f, r,
+                                          tcfg.recover_budget)
                 sel_valid = sel_valid & (torch.arange(budget, device=dev)
                                          < eff)
             sel_box = _take(rec_box.reshape(c, f * r, 4), g_idx)
@@ -313,7 +430,10 @@ class ClipTracker:
     def _clip(self, frames, centers, scales, det_scores, det_valid,
               det_boxes, frame_valid, seed_joints, seed_valid, seed_scores,
               seed_ages, seed_ids, next_id0, real_frames=None):
-        """Every argument carries the leading lane axis C."""
+        """The clip program. Every tensor argument carries the leading lane
+        axis C; ``real_frames`` (None for a full clip) is the real frame
+        count of clips padded with invalid frames, a device int32
+        scalar."""
         tcfg = self.cfg.track
         c, f, h, w, _ = frames.shape
         p = centers.shape[2]
@@ -327,7 +447,8 @@ class ClipTracker:
         # 2. pose on all detector persons of all frames: one crop launch
         frames = frames.reshape(c * f, h, w, 3)
         with record_function("clip.pose"):
-            frame_idx = torch.arange(c * f, device=dev).repeat_interleave(p)
+            frame_idx = torch.arange(c * f, device=dev)[:, None].expand(
+                c * f, p).reshape(-1)
             centers_flat = centers.reshape(-1, 2)
             scales_flat = scales.reshape(-1, 2)
             crops = self._crop(frames, frame_idx, centers_flat, scales_flat)
@@ -371,11 +492,20 @@ class ClipTracker:
                                        nid)
                 all_ids.append(ids)
             all_ids = torch.stack(all_ids, 1)
-        # the next clip's seed: the last REAL frame's live tracks
-        last = (real_frames if real_frames is not None else f) - 1
-        seed_out = (preds[:, last], valid[:, last], scores[:, last],
-                    ages[:, last],
-                    torch.where(valid[:, last], all_ids[:, last], 0), nid)
+        # the next clip's seed: the last REAL frame's live tracks, gathered
+        # at the device scalar real_frames - 1 for a padded clip
+        if real_frames is None:
+            def at_last(x):
+                return x[:, f - 1]
+        else:
+            last = (real_frames.long() - 1).clamp(0, f - 1).reshape(1)
+
+            def at_last(x):
+                return x.index_select(1, last).squeeze(1)
+        seed_valid_out = at_last(valid)
+        seed_out = (at_last(preds), seed_valid_out, at_last(scores),
+                    at_last(ages),
+                    torch.where(seed_valid_out, at_last(all_ids), 0), nid)
         return preds, maxvals, scores, all_ids, valid, seed_out
 
     def empty_seed(self):
@@ -444,21 +574,52 @@ class ClipTracker:
             [frame_offset])
         return tuple(x[0] for x in lanes)
 
+    def graph_key(self, device_args, budget_frames) -> tuple:
+        """The geometry of a run: lanes C, frames F, persons P, frame H and
+        W, the frames' dtype, and whether the clips are padded."""
+        frames = device_args[0]
+        return (*frames.shape[:4], device_args[1].shape[2], frames.dtype,
+                budget_frames is not None)
+
     @torch.inference_mode()
     def run_prepared_lanes(self, device_args, seeds: Optional[Sequence] = None,
                            budget_frames: Optional[int] = None):
         """Track C prepared clips of one shape (``prepare_lanes``' tuple) in
         one batched run, lane i seeded by ``seeds[i]`` (None: the empty
         seed; ``seeds`` None: every lane empty). ``budget_frames``: the real
-        frame count of clips padded with invalid frames, for every lane.
-        Returns device tensors (preds, maxvals, scores, ids, valid,
-        seed_out), each with a leading C; ``tuple(leaf[i] for leaf in
-        seed_out)`` seeds lane i's next (one-frame-overlapping) clip."""
+        frame count (1..F) of clips padded with invalid frames, for every
+        lane. On a CUDA device the run replays the geometry's ``ClipGraph``
+        (captured at first use, and again after the nets' tensors changed),
+        elsewhere it runs ``_clip`` eagerly. Returns device tensors (preds,
+        maxvals, scores, ids, valid, seed_out), each with a leading C, that
+        no later run overwrites; ``tuple(leaf[i] for leaf in seed_out)``
+        seeds lane i's next (one-frame-overlapping) clip."""
         empty = self.empty_seed()
         seeds = [empty if s is None else s
                  for s in (seeds or [None] * device_args[0].shape[0])]
         seed = [torch.stack(leaves) for leaves in zip(*seeds)]
-        return self._clip(*device_args, *seed, real_frames=budget_frames)
+        args = (*device_args, *seed)
+        real = None if budget_frames is None else real_frames_scalar(
+            budget_frames, device_args[0].shape[1], self.device)
+        if self.device.type != "cuda":
+            return self._clip(*args, real_frames=real)
+        state = clip_state(self.pose_model, self.flow_model)
+        key = state_key(state)
+        if key != self._state_key:
+            # every graph read the nets' former tensors; a new pool, as the
+            # allocator frees one only when no graph uses it
+            self.graphs.clear()
+            self._state_key = key
+            self._capture = None
+        if self._capture is None:
+            self._capture = (torch.cuda.graph_pool_handle(),
+                             torch.cuda.Stream(self.device))
+        geometry = self.graph_key(device_args, budget_frames)
+        graph = self.graphs.get(geometry)
+        if graph is None:
+            graph = self.graphs[geometry] = ClipGraph(
+                self._clip, args, real, state, *self._capture)
+        return graph.run(args, real)
 
     def run_prepared(self, device_args, budget_frames: Optional[int] = None,
                      seed=None):

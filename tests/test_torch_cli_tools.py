@@ -29,15 +29,16 @@ from flowtrack_tpu.models.pose_resnet import get_pose_net as ref_get_pose_net
 from flowtrack_tpu_torch.data.pose_dataset import load_image
 from flowtrack_tpu_torch.tools import demo, eval_flow, test, track, track_video
 from tests.fixtures import make_coco_fixture, save_image
+from tests.test_torch_clip_pipeline import _random_variables
 from tools import demo as ref_demo
 from tools import eval_flow as ref_eval_flow
 from tools import test as ref_test
 
 
 def init_npz(path, net, shape, key):
-    """The reference's initialised variables of ``net`` as an .npz."""
-    ref_save_npz(str(path), jax.jit(net.init, static_argnames="train")(
-        jax.random.PRNGKey(key), jnp.zeros(shape), train=False))
+    """Variables of ``net`` drawn with the reference's initializers
+    (``_random_variables``), as an .npz."""
+    ref_save_npz(str(path), _random_variables(net, shape, key))
 
 
 def last_json(fn, *args):

@@ -39,16 +39,49 @@ def _cfg():
                                       track_oks_thre=0.1))
 
 
+# the reference's modules whose kernels start N(0, 0.001): every
+# ConvTransposeTorch (layers.py:45; the pose head's deconv{i}, FlowNet's
+# deconv and upsampled_flow*) and the pose net's final conv
+# (pose_resnet.py:144)
+_SMALL_INIT = ("deconv", "upsampled_flow", "final")
+
+
+def _random_variables(model, input_shape, seed):
+    """The model's variable tree (shapes from ``jax.eval_shape``, no
+    compile) drawn from numpy with the reference's own initializers: a
+    kernel of a module named in ``_SMALL_INIT`` N(0, 0.001), every other
+    conv kernel he_normal (layers.py:80: flax's truncated normal, std
+    sqrt(2 / fan_in) / 0.8796 cut at two of its stds), biases and
+    batch-norm means 0, batch-norm scales and variances 1 (layers.py:110)."""
+    tree = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros(input_shape), train=False))
+    rng = np.random.default_rng(seed)
+
+    def truncated(shape):
+        x = rng.standard_normal(shape)
+        while (out := np.abs(x) > 2).any():
+            x[out] = rng.standard_normal(out.sum())
+        return x
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            if path[-2].key.startswith(_SMALL_INIT):
+                return rng.normal(0.0, 0.001, shape).astype(np.float32)
+            std = np.sqrt(2.0 / np.prod(shape[:-1])) / 0.87962566103423978
+            return (truncated(shape) * std).astype(np.float32)
+        return np.full(shape, 1.0 if name in ("scale", "var") else 0.0,
+                       np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, tree)
+
+
 @pytest.fixture(scope="module")
 def trackers():
     cfg = _cfg()
     jpose, jflow = jax_pose_net(cfg.model), jax_flow_net(cfg.flow)
-    pv = jax.jit(jpose.init, static_argnames="train")(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)), train=False)
-    fv = jax.jit(jflow.init, static_argnames="train")(
-        jax.random.PRNGKey(1), jnp.zeros((1, 64, 64, 6)), train=False)
-    pv = jax.tree_util.tree_map(np.asarray, pv)
-    fv = jax.tree_util.tree_map(np.asarray, fv)
+    pv = _random_variables(jpose, (1, 64, 48, 3), 0)
+    fv = _random_variables(jflow, (1, 64, 64, 6), 1)
     ref = JaxClipTracker(cfg, jpose, pv, jflow, fv)
     port = ClipTracker(cfg, load_pose_resnet(get_pose_net(cfg.model), pv),
                        load_flownet(get_flow_net(cfg.flow), fv),

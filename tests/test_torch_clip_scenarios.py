@@ -28,6 +28,7 @@ from tests.test_clip_pipeline import (
     StubFlow,
     StubPose,
     _dropout_scenario,
+    default_tracker,
     make_cfg,
 )
 
@@ -231,11 +232,20 @@ SCENARIOS = ["ids_stable_and_new_id", "swap_resistance",
              "chained_occluded_boundary"]
 
 
+def _reference(cfg):
+    """The JAX tracker of ``cfg``: the default configuration's is
+    tests/test_clip_pipeline.py's shared ``default_tracker`` (one jit cache
+    for every scenario of that configuration and clip shape)."""
+    if cfg == make_cfg():
+        return default_tracker()
+    return JaxClipTracker(cfg, StubPose(), {}, StubFlow(), {})
+
+
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_stub_scenario_matches_reference(name):
     cfg = _cfg_for(name)
     scenario = globals()[f"scen_{name}"]
-    want = scenario(JaxClipTracker(cfg, StubPose(), {}, StubFlow(), {}), cfg)
+    want = scenario(_reference(cfg), cfg)
     got = scenario(ClipTracker(cfg, StubPoseTorch(), StubFlowTorch(),
                                device="cpu"), cfg)
     for g, w in zip(got, want):

@@ -33,6 +33,7 @@ from flowtrack_tpu_torch.utils.convert import (
     load_flownet2,
     load_pose_resnet,
 )
+from tests.test_torch_clip_pipeline import _random_variables
 
 HW = 64
 CASCADE_NETS = {"flownet2_cs": ("flownetc", "flownets_1"),
@@ -236,9 +237,7 @@ def test_clip_tracker_with_flownet2_matches_reference(variables):
     relative."""
     cfg = _clip_cfg()
     jpose = jax_pose_net(cfg.model)
-    pv = jax.jit(jpose.init, static_argnames="train")(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)), train=False)
-    pv = jax.tree_util.tree_map(np.asarray, pv)
+    pv = _random_variables(jpose, (1, 64, 48, 3), 0)
     ref = JaxClipTracker(cfg, jpose, pv, jflownet.get_flow_net(cfg.flow),
                          variables)
     port = ClipTracker(cfg, load_pose_resnet(get_pose_net(cfg.model), pv),

@@ -294,3 +294,47 @@ def test_library_path_tracks_the_flags(monkeypatch):
     monkeypatch.setattr(kernels, "NVCC_FLAGS",
                         kernels.NVCC_FLAGS + ("-lineinfo",))
     assert kernels.library_path() != plain
+
+
+def test_sources_ship_with_the_package_config():
+    """An installed package can build its kernels and its host NMS:
+    pyproject ships the CUDA sources, their header and the NMS source,
+    each key a package whose files the globs find."""
+    import fnmatch
+    import tomllib
+
+    with open(REPO / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    wanted = {"flowtrack_tpu_torch": ["crop.cu", "correlation.cu",
+                                      "resample2d.cu", "fused_stage.cu"],
+              "flowtrack_tpu_torch.csrc": ["hopper.cuh"],
+              "flowtrack_tpu_torch.native": ["nms.cc"]}
+    for pkg, names in wanted.items():
+        root = REPO / pkg.replace(".", "/")
+        shipped = {str(p.relative_to(root)) for glob in data[pkg]
+                   for p in root.glob(glob)}
+        for name in names:
+            assert any(fnmatch.fnmatch(s, f"*{name}") for s in shipped), \
+                (pkg, name)
+
+
+def test_build_dir_falls_back_to_the_user_cache(tmp_path, monkeypatch):
+    """The kernels and the host NMS build beside the checkout when that can
+    be written, and in the user's cache directory when it cannot (an
+    installed package); nothing is built to find out."""
+    from flowtrack_tpu_torch import native
+
+    assert kernels.BUILD_DIR == kernels.build_dir()
+    assert native.library_path().parent == kernels.BUILD_DIR
+    writable = tmp_path / "checkout" / "build" / "flowtrack_tpu_torch"
+    assert kernels.build_dir(writable) == writable
+    blocked = tmp_path / "a_file"
+    blocked.write_text("")
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert (kernels.build_dir(blocked / "build" / "flowtrack_tpu_torch")
+            == tmp_path / "cache" / "flowtrack_tpu_torch")
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert (kernels.build_dir(blocked / "build")
+            == tmp_path / "home" / ".cache" / "flowtrack_tpu_torch")
+    assert not any(tmp_path.glob("**/*.so"))

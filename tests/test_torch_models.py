@@ -22,6 +22,7 @@ from flowtrack_tpu_torch.models.flownet import FlowNetC, get_flow_net
 from flowtrack_tpu_torch.models.layers import apply_precision_policy
 from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
 from flowtrack_tpu_torch.utils.convert import load_flownet, load_pose_resnet
+from tests.test_torch_clip_pipeline import _random_variables
 
 POSE_CFG = ModelConfig(num_layers=18, image_size=(64, 48),
                        heatmap_size=(16, 12), dtype="float32")
@@ -40,9 +41,7 @@ def _randomize_bn(variables, rng):
 
 
 def _init(model, shape, seed):
-    v = jax.jit(model.init, static_argnames="train")(
-        jax.random.PRNGKey(seed), jnp.zeros(shape), train=False)
-    return jax.tree_util.tree_map(np.asarray, v)
+    return _random_variables(model, shape, seed)
 
 
 @pytest.fixture(scope="module")

@@ -305,6 +305,7 @@ def predictors():
     from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
     from flowtrack_tpu_torch.pipeline import FlowPredictor, PosePredictor
     from flowtrack_tpu_torch.utils.convert import load_flownet, load_pose_resnet
+    from tests.test_torch_clip_pipeline import _random_variables
 
     cfg = Config(model=ModelConfig(num_layers=18, image_size=(64, 48),
                                    heatmap_size=(16, 12), dtype="float32"),
@@ -316,12 +317,8 @@ def predictors():
                                      pose_score_thre=0.0,
                                      track_oks_thre=0.1))
     jpose, jflow = j_pose_net(cfg.model), j_flow_net(cfg.flow)
-    pv = jax.jit(jpose.init, static_argnames="train")(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 48, 3)), train=False)
-    fv = jax.jit(jflow.init, static_argnames="train")(
-        jax.random.PRNGKey(1), jnp.zeros((1, 64, 64, 6)), train=False)
-    pv = jax.tree_util.tree_map(np.asarray, pv)
-    fv = jax.tree_util.tree_map(np.asarray, fv)
+    pv = _random_variables(jpose, (1, 64, 48, 3), 0)
+    fv = _random_variables(jflow, (1, 64, 64, 6), 1)
     ref = (JPosePredictor(cfg, pv, model=jpose),
            JFlowPredictor(cfg, fv, model=jflow))
     port = (PosePredictor(cfg, load_pose_resnet(get_pose_net(cfg.model), pv),

@@ -28,6 +28,7 @@ from flowtrack_tpu.engine.checkpoint import save_npz_variables as ref_save_npz
 from flowtrack_tpu.models.pose_resnet import get_pose_net as ref_get_pose_net
 from flowtrack_tpu_torch.tools import train
 from tests.fixtures import make_coco_fixture
+from tests.test_torch_clip_pipeline import _random_variables
 from tools import train as ref_train
 
 SMALL = ["model.num_layers=18", "model.image_size=64,64",
@@ -41,12 +42,12 @@ LOSS_RTOL = {0: 1e-6, 1: 1e-5}
 
 
 def init_npz(path):
-    """The reference's initialised R18 at 64x64 as an .npz."""
+    """The reference's R18 at 64x64, its variables drawn with the
+    reference's initializers (``_random_variables``), as an .npz."""
     net = ref_get_pose_net(ref_config.ModelConfig(
         num_layers=18, image_size=(64, 64), heatmap_size=(16, 16),
         dtype="float32"))
-    ref_save_npz(str(path), jax.jit(net.init, static_argnames="train")(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), train=False))
+    ref_save_npz(str(path), _random_variables(net, (1, 64, 64, 3), 0))
 
 
 def metrics(out_dir):
