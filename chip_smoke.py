@@ -128,6 +128,20 @@ evaluators behind them. Phases that each print one or more lines:
  10. precision: the bf16 pose and flow nets (FlowNetC, FlowNet2 with
      float32 glue) against float32 ones with the same weights, and the
      fused R50 against the unfused bf16 and float32 ones, at full width;
+ 10b. mesh: slice 1's tracker on the mesh of every card and on a 2-slot
+     mesh repeating the first (``flowtrack_tpu_torch/parallel``):
+     ``track_clips(sharding=)`` of 4 lanes of 16-frame 384x640 clips bit
+     for bit against each slot's lanes run alone, K1 and K2 launches per
+     device from its own trace, sharded and unsharded frames/s in turns;
+     one clip frame-sharded (``track_clip(frame_sharding=)``), its
+     divergence from the whole clip logged (half the batch per call);
+     ``MultiStreamTracker(sharding=)`` with four 40-frame streams against
+     the same groups of streams served unsharded, bit for bit;
+     ``run_validation(mesh=)`` with the unsharded AP table; the sharded
+     train step in two gloo ranks on the first card (R50 256x192, 16 a
+     rank, and FlowNetC with K2 in every rank, float32, SGD) within 1e-6 +
+     1e-5 relative of the unsharded step on the global batch; with two
+     cards or more, the same over nccl across cards;
  11. train: coco_res50_256x192's train section (R50 256x192, batch 32,
      Adam, bf16) over a synthetic COCO set (tests/fixtures.py) through
      BatchLoader, then timed steps on one batch on the card (ms/step,
@@ -177,7 +191,8 @@ serving numbers), a JSON
 line with each kernel's numbers (launches from the fused path for crop and
 fused_stage, which must equal what the blocks' forms give, from the
 FlowNet2 path for correlation and resample2d; ``launches_by_path`` holds
-each path's counts, the eval, serving and train runs' included) and, last,
+each path's counts, the eval, serving, mesh and train runs' included) and,
+last,
 the
 device line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero.
@@ -188,6 +203,7 @@ file) and no network; it imports neither jax nor the reference package
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -3848,7 +3864,404 @@ def phase_train_cli(card, dev=None):
     return total
 
 
+MESH_LANES, MESH_TRAIN_BATCH, MESH_FLOW_BATCH = 4, 16, 2
+MESH_TIMED = 3
+# the sharded train step against the unsharded one: the reference's bound
+# (tests/test_sharded_eval.py:89-94)
+MESH_TRAIN_ATOL, MESH_TRAIN_RTOL = 1e-6, 1e-5
+# the frame-sharded clip against the whole clip, px: each slot's flows and
+# pose pass run at half the clip's batch, where the library convs may round
+# otherwise (ROADMAP Queue 3: 0.0598 px of flow); a wrong pass or a frame
+# out of place moves a joint by far more
+MESH_FRAME_JOINT_PX = 1.0
+
+
+def serve_groups(tracker, streams, groups, sharding):
+    """``streams`` through MultiStreamTracker(s) of 16-frame clips: one
+    tracker of all streams with ``sharding``, or, without it, one tracker
+    per group of stream ids, each batching its group; every frame submitted
+    in turns, then flushed. -> {stream: per-frame tracks}."""
+    from flowtrack_tpu_torch.serving import MultiStreamTracker
+
+    n = len(next(iter(streams.values()))[0])
+    msts = ([(MultiStreamTracker(tracker, clip_len=FRAMES,
+                                 batch_streams=len(streams),
+                                 sharding=sharding), list(streams))]
+            if sharding is not None else
+            [(MultiStreamTracker(tracker, clip_len=FRAMES,
+                                 batch_streams=len(g)), g) for g in groups])
+    emitted = []
+    for t in range(n):
+        for mst, sids in msts:
+            for sid in sids:
+                frames, boxes, scores = streams[sid]
+                mst.submit(sid, frames[t], boxes[t], scores[t])
+            emitted += mst.step()
+    for mst, _ in msts:
+        emitted += mst.flush()
+    got = {sid: [None] * n for sid in streams}
+    for sid, first, tracks in emitted:
+        for i, fr in enumerate(tracks):
+            got[sid][first + i] = fr
+    require(all(fr is not None for per in got.values() for fr in per),
+            "mesh: a served frame was never emitted")
+    return got
+
+
+def evaluated(dataset, run):
+    """``run()`` (a validation over ``dataset``) and the arrays it handed to
+    ``dataset.evaluate``: (stats, {preds, maxvals, scores, image_id})."""
+    seen = {}
+    evaluate = dataset.evaluate
+
+    def spy(preds, maxvals, scores, ids, **kw):
+        seen.update(preds=preds, maxvals=maxvals, scores=scores, image_id=ids)
+        return evaluate(preds, maxvals, scores, ids, **kw)
+
+    dataset.evaluate = spy
+    try:
+        return run(), seen
+    finally:
+        del dataset.evaluate
+
+
+def kernel_events_by_device(device_events) -> dict:
+    """Device events of each counted kernel, by device index."""
+    out = {}
+    for e in device_events:
+        for k, rule in KERNEL_FUNCTIONS.items():
+            if rule.search(e.name):
+                per = out.setdefault(e.device_index, dict.fromkeys(
+                    KERNEL_FUNCTIONS, 0))
+                per[k] += 1
+    return out
+
+
+def mesh_train(card_f, dev, mesh, tag):
+    """The sharded train step on ``mesh`` (one rank a slot:
+    ``train_steps_on_mesh``) against the unsharded step on the global
+    batch in this process: R50 256x192 float32 (TF32 off), a per-device
+    batch of MESH_TRAIN_BATCH, one SGD step; FlowNetC float32 at
+    FLOW_TRAIN_HW, MESH_FLOW_BATCH a device, one SGD step (K2's forward
+    under autograd in every rank). Loss within MESH_TRAIN_RTOL relative,
+    every parameter and running statistic within MESH_TRAIN_ATOL +
+    MESH_TRAIN_RTOL relative; the measured differences are logged."""
+    import copy
+
+    from flowtrack_tpu_torch.config import Config, FlowConfig, get_config
+    from flowtrack_tpu_torch.engine.flow_train import flow_train_step
+    from flowtrack_tpu_torch.engine.train import (create_train_state,
+                                                  train_step)
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.layers import apply_precision_policy
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.parallel.distributed import (backend_for,
+                                                          train_steps_on_mesh)
+
+    base = get_config("coco_res50_256x192")
+    sgd = replace(base.train, optimizer="sgd")
+    pose_cfg = replace(base, model=replace(base.model, dtype="float32"),
+                       train=sgd)
+    flow_cfg = Config(flow=FlowConfig(variant="flownet_c", dtype="float32"),
+                      train=sgd)
+    gen = torch.Generator().manual_seed(SEED)
+    pose = get_pose_net(pose_cfg.model, None, gen)
+    flow = get_flow_net(flow_cfg.flow, None, gen)
+    rng = np.random.default_rng(SEED + 11)
+    n = mesh.size
+    ih, iw = pose_cfg.model.image_size
+    hh, hw = pose_cfg.model.heatmap_size
+    pose_batch = {
+        "input": rng.normal(size=(MESH_TRAIN_BATCH * n, ih, iw, 3)
+                            ).astype(np.float32),
+        "target": rng.uniform(0, 1, (MESH_TRAIN_BATCH * n, hh, hw, 17)
+                              ).astype(np.float32),
+        "target_weight": np.ones((MESH_TRAIN_BATCH * n, 17), np.float32)}
+    fh, fw = FLOW_TRAIN_HW
+    flow_batch = {
+        "input": rng.normal(0, 0.3, (MESH_FLOW_BATCH * n, fh, fw, 6)
+                            ).astype(np.float32),
+        "flow": rng.normal(0, 2.0, (MESH_FLOW_BATCH * n, fh, fw, 2)
+                           ).astype(np.float32)}
+    jobs = [{"kind": "pose", "model": pose, "cfg": pose_cfg,
+             "batches": [pose_batch]},
+            {"kind": "flow", "model": flow, "cfg": flow_cfg,
+             "batches": [flow_batch]}]
+    t0 = time.perf_counter()
+    got = train_steps_on_mesh(mesh, jobs)
+    spawn_s = time.perf_counter() - t0
+    apply_precision_policy(torch.float32)
+    for job, res in zip(jobs, got):
+        model = copy.deepcopy(job["model"]).to(dev)
+        state = create_train_state(model, job["cfg"])
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in job["batches"][0].items()}
+        if job["kind"] == "pose":
+            state, m = train_step(state, batch)
+        else:
+            state, m = flow_train_step(state, batch)
+        loss_rel = abs(res["metrics"][0]["loss"] - float(m["loss"])) / abs(
+            float(m["loss"]))
+        worst_abs, worst_excess = 0.0, 0.0
+        for k, v in model.state_dict().items():
+            if not v.is_floating_point():
+                require(torch.equal(res["state"][k], v.cpu()),
+                        f"{tag}: {k} differs")
+                continue
+            d = (res["state"][k].double() - v.double().cpu()).abs()
+            worst_abs = max(worst_abs, d.max().item())
+            bound = MESH_TRAIN_ATOL + MESH_TRAIN_RTOL * v.double().cpu().abs()
+            worst_excess = max(worst_excess, (d - bound).max().item())
+        log("mesh", check=f"train_{job['kind']}", mesh=tag,
+            backend=backend_for(mesh), ranks=n,
+            global_batch=len(job["batches"][0]["input"]),
+            loss=res["metrics"][0]["loss"], loss_rel_diff=loss_rel,
+            max_abs_diff=worst_abs, bound_atol=MESH_TRAIN_ATOL,
+            bound_rtol=MESH_TRAIN_RTOL, rank0_launches=res["launches"],
+            spawn_and_steps_s=spawn_s, card=card_f)
+        require(loss_rel <= MESH_TRAIN_RTOL,
+                f"{tag}: sharded {job['kind']} loss differs by {loss_rel}")
+        require(worst_excess <= 0.0,
+                f"{tag}: sharded {job['kind']} step off by {worst_abs}")
+    require(dev.type != "cuda" or got[1]["launches"]["correlation"] > 0,
+            f"{tag}: K2 never launched in the ranks' FlowNetC step")
+
+
+def phase_mesh(card, dev=None):
+    """Multi-device execution: slice 1's tracker (R50 256x192 + FlowNetC,
+    bf16, flip test, recovery, every candidate kept) on the mesh of every
+    card (``make_mesh()``) and on a 2-slot mesh that repeats the first, so
+    that the split, the per-slot dispatch and the gather run on one card.
+    On each: ``track_clips(sharding=)`` of MESH_LANES 16-frame 384x640
+    clips, bit for bit against ``run_prepared_lanes`` on each slot's lanes
+    alone, its K1 and K2 launches per device from its own trace, and
+    sharded against unsharded frames/s in turns (on one card the cost of
+    split and gather, not scaling); on the repeated mesh also one clip's
+    frames split over it (``track_clip(frame_sharding=)``: ids and valid
+    equal to the whole clip's, joints within MESH_FRAME_JOINT_PX),
+    MultiStreamTracker(sharding=) with four 40-frame streams, each
+    stream's emissions equal to the same groups of streams served
+    unsharded, ``run_validation(mesh=)`` on a synthetic COCO set with its
+    gathered joints, maxvals, scores and image ids bit for bit those of
+    the one-slot run, and the sharded train step in two gloo ranks
+    against the unsharded one (``mesh_train``); with two cards or more the
+    train step also on two cards over nccl. Returns the launch counts of
+    the traced sharded runs."""
+    import tempfile
+    from pathlib import Path
+
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.parallel import batch_sharding, make_mesh
+    from flowtrack_tpu_torch.tools.test import (build_val_dataset,
+                                                run_validation)
+    from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    on_card = dev.type == "cuda"
+    card_f = f"'{card}'"
+    t_phase = time.perf_counter()
+    base = slice_config()
+    cfg = replace(base, track=replace(base.track, pose_score_thre=0.0))
+    gen = torch.Generator().manual_seed(SEED)
+    tracker = ClipTracker(cfg, get_pose_net(cfg.model, dev, gen),
+                          get_flow_net(cfg.flow, dev, gen),
+                          max_persons=PERSONS, device=dev)
+    meshes = {"repeated": make_mesh(0, devices=[dev, dev])}
+    if on_card:
+        meshes["cards"] = make_mesh()
+    rng = np.random.default_rng(SEED + 9)
+    c = MESH_LANES
+    frames = rng.integers(0, 256, (c, FRAMES, FRAME_H, FRAME_W, 3), np.uint8)
+    dets = [video_detections(rng, FRAMES, PERSONS, FRAME_H, FRAME_W,
+                             (2.0, 1.0), drop=[(3,), (7, 8)])
+            for _ in range(c)]
+    clips = (frames, *(np.stack(x) for x in zip(*dets)))
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for tag, mesh in meshes.items():
+        sharding = batch_sharding(mesh)
+        t0 = time.perf_counter()
+        tracker.track_clips(*clips, sharding=sharding)   # captures
+        warm_s = time.perf_counter() - t0
+        result = {}
+
+        def sharded_run():
+            result["out"] = tracker.track_clips(*clips, sharding=sharding)
+
+        if on_card:
+            _, wall_ms, events = profile_run(f"mesh_{tag}",
+                                             zero_counts(sharded_run))
+            per_device = kernel_events_by_device(events)
+            run_launches = kernel_events(events)
+            for d in mesh.distinct():
+                got = per_device.get(d.index, {})
+                require(got.get("crop_resize_normalize", 0) > 0
+                        and got.get("correlation", 0) > 0,
+                        f"mesh {tag}: K1 or K2 never ran on {d}: "
+                        f"{per_device}")
+        else:
+            t0 = time.perf_counter()
+            zero_counts(sharded_run)()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            run_launches = {k: fn.launches
+                            for k, fn in kernel_counters().items()}
+            per_device = {"cpu": run_launches}
+        for k in launches:
+            launches[k] += run_launches[k]
+        got = result["out"]
+        per = c // mesh.size
+        for g, d in enumerate(mesh.flat()):
+            rep = tracker.replica(d)
+            lanes = slice(g * per, (g + 1) * per)
+            alone = rep.to_host(rep.run_prepared_lanes(rep.prepare_lanes(
+                *(x[lanes] for x in clips))))
+            for key, v in alone.items():
+                require(np.array_equal(got[key][lanes], v),
+                        f"mesh {tag}: slot {g}'s {key} differ from its lanes "
+                        f"alone")
+        require(got["ids"].shape == (c, FRAMES, PERSONS + RECOVERED)
+                and np.isfinite(got["joints"]).all(),
+                f"mesh {tag}: outputs {got['ids'].shape}")
+        times = {"sharded": [], "unsharded": []}
+        tracker.track_clips(*clips)
+        for _ in range(MESH_TIMED):
+            for route, kw in (("sharded", {"sharding": sharding}),
+                              ("unsharded", {})):
+                t0 = time.perf_counter()
+                tracker.track_clips(*clips, **kw)
+                times[route].append(time.perf_counter() - t0)
+        fps = {r: c * FRAMES / float(np.median(t)) for r, t in times.items()}
+        SUMMARY.setdefault("mesh_frames_per_s", {})[tag] = {
+            r: round(v, 2) for r, v in fps.items()}
+        log("mesh", check="track_clips", mesh=tag, slots=mesh.size,
+            devices=[str(d) for d in mesh.distinct()], lanes=c,
+            frames_per_clip=FRAMES, frame_hw=f"{FRAME_H}x{FRAME_W}",
+            bitwise_per_slot=True, warm_s=warm_s, traced_wall_ms=wall_ms,
+            launches=run_launches, launches_by_device=per_device,
+            sharded_frames_per_s=fps["sharded"],
+            unsharded_frames_per_s=fps["unsharded"], timed_turns=MESH_TIMED,
+            card=card_f)
+
+    # one clip's frames over the repeated mesh, against the whole clip
+    mesh = meshes["repeated"]
+    one = tuple(x[0] for x in clips)
+    t0 = time.perf_counter()
+    got = tracker.track_clip(*one, frame_sharding=batch_sharding(mesh))
+    frame_s = time.perf_counter() - t0
+    want = tracker.track_clip(*one)
+    require(got["ids"].shape == want["ids"].shape
+            and np.isfinite(got["joints"]).all(),
+            f"mesh: frame-sharded clip {got['ids'].shape}")
+    require(np.array_equal(got["valid"], want["valid"])
+            and np.array_equal(got["ids"], want["ids"]),
+            "mesh: the frame-sharded clip's ids or valid differ from the "
+            "whole clip's")
+    valid = want["valid"]
+    require(valid[:, PERSONS:].any(),
+            "mesh: the frame-sharded clip recovered no person")
+    joint_px = float(np.abs(got["joints"] - want["joints"])[valid].max())
+    log("mesh", check="frame_sharded_clip", slots=mesh.size,
+        frames=FRAMES, seconds=frame_s, ids_valid_equal=True,
+        max_joint_diff_px=joint_px, bound_px=MESH_FRAME_JOINT_PX,
+        recovered=int(valid[:, PERSONS:].sum()), card=card_f)
+    require(joint_px <= MESH_FRAME_JOINT_PX,
+            f"mesh: frame-sharded joints off by {joint_px} px")
+
+    # serving: one sharded tracker of four streams against the same
+    # groups of two served unsharded
+    streams = {}
+    for i in range(SERVE_STREAMS):
+        video = rng.integers(0, 256, (SERVE_FRAMES, FRAME_H, FRAME_W, 3),
+                             np.uint8)
+        det = video_detections(rng, SERVE_FRAMES, PERSONS, FRAME_H, FRAME_W,
+                               (2.0, 1.0), drop=[(FRAMES - 1,), (5, 6)])
+        streams[f"s{i}"] = (video, *ragged(*det))
+    sids = list(streams)
+    half = len(sids) // mesh.size
+    groups = [sids[i:i + half] for i in range(0, len(sids), half)]
+    # the first turn captures the graphs (the tails' among them); the
+    # second is timed: sharded, unsharded, sharded, unsharded
+    seconds = {"sharded": [], "unsharded": []}
+    for _ in range(2):
+        for route, sharding in (("sharded", batch_sharding(mesh)),
+                                ("unsharded", None)):
+            t0 = time.perf_counter()
+            got = serve_groups(tracker, streams, groups, sharding)
+            seconds[route].append(time.perf_counter() - t0)
+            if route == "sharded":
+                sharded = got
+    tracks = sum(same_emissions(f"mesh serving {sid}", sharded[sid],
+                                got[sid], 0.0) for sid in streams)
+    require(tracks > 0, "mesh serving: no track emitted")
+    log("mesh", check="MultiStreamTracker", slots=mesh.size,
+        streams=len(streams), frames=SERVE_FRAMES, groups=groups,
+        bitwise=True, tracks=tracks, sharded_s=seconds["sharded"],
+        unsharded_s=seconds["unsharded"],
+        sharded_frames_per_s=len(streams) * SERVE_FRAMES
+        / seconds["sharded"][1],
+        unsharded_frames_per_s=len(streams) * SERVE_FRAMES
+        / seconds["unsharded"][1], card=card_f)
+
+    # validation over the mesh against one slot: the arrays it gathers
+    # (random weights score AP 0 on both, so the table alone would prove
+    # nothing); every box's joints differ, so a slot's results out of
+    # order, twice or missing would show
+    vcfg = get_config("coco_res50_256x192")
+    vcfg = replace(vcfg, test=replace(vcfg.test, batch_size=8))
+    model = get_pose_net(vcfg.model, dev, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, _, det = coco_fixture().make_coco_fixture(
+            Path(tmp) / "coco", n_images=LOOP_IMAGES, persons=2)
+        vcfg = replace(vcfg, data=replace(vcfg.data, root=str(root)),
+                       test=replace(vcfg.test, bbox_file=det))
+        dataset = build_val_dataset(vcfg)
+        want, one_slot = evaluated(dataset, lambda: run_validation(
+            vcfg, model, output_dir=str(Path(tmp) / "a"), dataset=dataset,
+            mesh=make_mesh(0, devices=[dev])))
+        got, sharded = evaluated(dataset, lambda: run_validation(
+            vcfg, model, output_dir=str(Path(tmp) / "b"), dataset=dataset,
+            mesh=mesh))
+    rows = len(one_slot["image_id"])
+    require(rows == len(dataset) and rows > 8,
+            f"mesh: run_validation gathered {rows} rows of {len(dataset)}")
+    require(len(np.unique(one_slot["preds"].reshape(rows, -1), axis=0))
+            == rows, "mesh: run_validation's rows are not distinct")
+    for k, v in one_slot.items():
+        require(np.array_equal(sharded[k], v),
+                f"mesh: run_validation's gathered {k} differ from one slot's")
+    require(got == want, f"mesh: run_validation {got} != {want}")
+    log("mesh", check="run_validation", slots=mesh.size,
+        images=LOOP_IMAGES, boxes=rows, batch_per_slot=8, ap=got["AP"],
+        gathered_bitwise=True, card=card_f)
+
+    mesh_train(card_f, dev, mesh, "repeated")
+    if on_card and torch.cuda.device_count() >= 2:
+        mesh_train(card_f, dev, make_mesh(2), "cards")
+    log("mesh", seconds=time.perf_counter() - t_phase,
+        cards=torch.cuda.device_count() if on_card else 0, card=card_f)
+    return launches
+
+
+def time_phases(module, seconds: dict) -> None:
+    """Wrap every ``phase_*`` function of ``module`` (this script, or
+    another checkout's copy of it loaded by path, to set the two side by
+    side) so that its wall seconds add up in ``seconds`` under the phase's
+    name (``tracking`` runs twice and sums)."""
+    for name in [n for n in vars(module) if n.startswith("phase_")]:
+        def timed(*args, _fn=getattr(module, name), _name=name[6:], **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                seconds[_name] = (seconds.get(_name, 0.0)
+                                  + time.perf_counter() - t0)
+        setattr(module, name, timed)
+
+
 def main() -> int:
+    phase_s = {}
+    time_phases(sys.modules[__name__], phase_s)
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
@@ -3875,18 +4288,23 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_precision()
     torch.cuda.empty_cache()
+    mesh = phase_mesh(card)
+    torch.cuda.synchronize()
+    gc.collect()   # the mesh's replicas and their graph pools
+    torch.cuda.empty_cache()
     train = phase_train(card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(card)
     torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
-               "int8": int8, "eval": eval_, "serving": serving, "train": train,
-               "train_cli": train_cli}
+               "int8": int8, "eval": eval_, "serving": serving, "mesh": mesh,
+               "train": train, "train_cli": train_cli}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
+    SUMMARY["phase_s"] = {k: round(v, 1) for k, v in phase_s.items()}
     log("summary", **SUMMARY)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,17 +2,20 @@
 
 Port of ``flowtrack_tpu/config.py``, so that the port and its smoke import
 nothing of the reference package. The model, flow, train, test, track and
-data sections keep the reference's field names and defaults one for one
-(``tests/test_torch_isolation.py`` pins that), so a reference config and a
-port config drive ``ClipTracker`` and the train steps alike. The mesh
-section (multi-device layouts) and yaml loading are not ported; the CLIs'
-dotted overrides (``apply_overrides``) are. The flow section's ``use_pallas_corr``, ``use_pallas_warp`` and
-``pallas_warp_impl`` choose TPU kernels in the reference and have no effect
-here (``models/flownet.get_flow_net``).
+data sections and the mesh section (the multi-device layout,
+``parallel/mesh.py``) keep the reference's field names and defaults one
+for one (``tests/test_torch_isolation.py`` pins that), so a reference
+config and a port config drive ``ClipTracker`` and the train steps alike.
+The CLIs' dotted overrides (``apply_overrides``) and ``experiments/*.yaml``
+(``load_yaml``, which reads the subset of YAML those files use without
+PyYAML) are ported too. The flow section's ``use_pallas_corr``,
+``use_pallas_warp`` and ``pallas_warp_impl`` choose TPU kernels in the
+reference and have no effect here (``models/flownet.get_flow_net``).
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field, replace
 from typing import Any, Tuple
 
@@ -141,6 +144,16 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The multi-device layout: a 1-D mesh of ``num_devices`` devices (0:
+    every CUDA device, or the one device an entry point was given) whose
+    axis is named ``data_axis``."""
+
+    data_axis: str = "data"
+    num_devices: int = 0           # 0 = use all available
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "coco_res50_256x192"
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -149,6 +162,7 @@ class Config:
     test: TestConfig = field(default_factory=TestConfig)
     track: TrackConfig = field(default_factory=TrackConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def _nested_replace(obj: Any, dotted: str, value: Any) -> Any:
@@ -187,7 +201,7 @@ def _res(num_layers: int, image_size, heatmap_size, sigma, name,
         data=data)
 
 
-# the reference's presets, without their mesh sections
+# the reference's presets
 PRESETS = {
     "coco_res50_256x192": _res(50, (256, 192), (64, 48), 2.0, "coco_res50_256x192"),
     "coco_res50_384x288": _res(50, (384, 288), (96, 72), 3.0, "coco_res50_384x288"),
@@ -208,7 +222,104 @@ PRESETS = {
 }
 
 
+# YAML 1.1's float as PyYAML resolves it: a dot, and a signed exponent
+_FLOAT = re.compile(r"[-+]?(\d+\.\d*|\.\d+)([eE][-+]\d+)?")
+
+
+def _yaml_scalar(text: str):
+    """A plain or quoted YAML scalar as PyYAML's safe loader reads it, for
+    the kinds the experiment files hold: bool, int, float, null, string."""
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "~", ""):
+        return None
+    if re.fullmatch(r"[-+]?\d+", text):
+        return int(text)
+    if _FLOAT.fullmatch(text):
+        return float(text)
+    return text
+
+
+def _yaml_flow_list(text: str):
+    """A flow sequence ``[a, [b, c]]`` -> nested lists of scalars."""
+    stack = [[]]
+    token = ""
+    for ch in text.strip():
+        if ch == "[":
+            stack.append([])
+        elif ch in ",]":
+            if token.strip():
+                stack[-1].append(_yaml_scalar(token))
+            token = ""
+            if ch == "]":
+                done = stack.pop()
+                stack[-1].append(done)
+        else:
+            token += ch
+    if len(stack) != 1 or len(stack[0]) != 1 or token.strip():
+        raise ValueError(f"unsupported YAML sequence {text!r}")
+    return stack[0][0]
+
+
+def parse_yaml(text: str) -> dict:
+    """The YAML subset of ``experiments/*.yaml``: ``#`` comments, top-level
+    keys holding a scalar or one level of indented ``key: value`` pairs,
+    plain or quoted scalars and flow sequences (``[256, 192]``)."""
+    out: dict = {}
+    section = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = re.sub(r"(^|\s)#.*$", "", raw).rstrip()
+        if not line.strip():
+            continue
+        key, sep, value = line.strip().partition(":")
+        if not sep or not key:
+            raise ValueError(f"line {n}: expected 'key: value', got {raw!r}")
+        value = value.strip()
+        parsed = (_yaml_flow_list(value) if value.startswith("[")
+                  else _yaml_scalar(value))
+        if line[0] in " \t":
+            if section is None:
+                raise ValueError(f"line {n}: indented key outside a section")
+            out[section][key] = parsed
+        elif value:
+            out[key] = parsed
+            section = None
+        else:
+            out[key] = {}
+            section = key
+    return out
+
+
+def load_yaml(path: str) -> Config:
+    """An experiment file as a Config: each section's keys replace the
+    defaults' (lists become tuples), ``name`` the name."""
+    with open(path) as f:
+        raw = parse_yaml(f.read())
+    cfg = Config()
+    for section, values in raw.items():
+        section = section.lower()
+        if section == "name":
+            cfg = replace(cfg, name=values)
+            continue
+        sub = getattr(cfg, section)
+        kw = {}
+        for k, v in values.items():
+            if isinstance(v, list):
+                v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+            kw[k.lower()] = v
+        cfg = replace(cfg, **{section: replace(sub, **kw)})
+    return cfg
+
+
 def get_config(name: str) -> Config:
     if name in PRESETS:
         return PRESETS[name]
+    if name.endswith((".yaml", ".yml")):
+        return load_yaml(name)
     raise KeyError(f"unknown config {name!r}; presets: {sorted(PRESETS)}")

@@ -6,7 +6,8 @@ and augments items (cv2 and numpy release the interpreter lock for the
 heavy parts), batches are stacked into numpy arrays, and a producer thread
 keeps ``prefetch_batches`` of them ready. ``device_prefetch`` copies each
 batch into pinned host memory and on to the device with ``non_blocking``
-copies, keeping ``size`` batches in flight.
+copies, keeping ``size`` batches in flight; with a sharding, each batch
+goes to the mesh's devices as its slots' parts.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from flowtrack_tpu_torch.parallel.mesh import part
+
 
 def collate(items) -> Dict[str, np.ndarray]:
     return {key: np.stack([np.asarray(it[key]) for it in items])
@@ -30,12 +33,21 @@ class BatchLoader:
     """Iterate dicts of stacked numpy arrays over a PoseDataset. Shuffles
     with a generator of its own (``seed``); each epoch first calls the
     dataset's ``set_epoch``. ``pad_to_batch`` fills a short last batch by
-    repeating its last item; ``n_valid`` counts the real ones."""
+    repeating its last item; ``n_valid`` counts the real ones.
+    ``shard=(i, n)`` (with ``drop_last``) reads only the i-th of n equal
+    parts of each batch: one rank's share of a batch split over a mesh
+    (items are augmented by their index, so the parts equal the whole
+    batch's rows)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8,
                  pad_to_batch: bool = False, seed: int = 0,
-                 prefetch_batches: int = 2):
+                 prefetch_batches: int = 2, shard=(0, 1)):
+        index, parts = shard
+        if parts > 1 and (not drop_last or batch_size % parts):
+            raise ValueError(f"a shard of {parts} parts needs drop_last and "
+                             f"a batch that divides, got {batch_size}")
+        self.shard = (index, parts)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -63,6 +75,7 @@ class BatchLoader:
             yield chunk
 
     def _make_batch(self, pool, chunk):
+        chunk = part(chunk, *self.shard)
         items = list(pool.map(self.dataset.__getitem__, chunk))
         batch = collate(items)
         n_valid = len(items)
@@ -142,20 +155,42 @@ def _to_device(batch, device):
     return out
 
 
-def device_prefetch(iterator, device="cuda", size: int = 2):
+def _to_slots(batch, sharding):
+    """A host batch -> one batch per mesh slot (1-D mesh), each slot's
+    equal part of every array copied to the slot's device, ``n_valid`` the
+    whole batch's on each."""
+    devices = sharding.mesh.flat()
+    if len(sharding.mesh.axis_names) != 1:
+        raise ValueError("a batch shards over a 1-D mesh")
+    return [_to_device({k: v if k == "n_valid" else part(v, i, len(devices))
+                        for k, v in batch.items()}, dev)
+            for i, dev in enumerate(devices)]
+
+
+def device_prefetch(iterator, device="cuda", size: int = 2, sharding=None):
     """Yield the iterator's numpy batches as tensors on ``device``, with
     ``size`` batches copied ahead (pinned host memory, ``non_blocking``
-    copies on the current stream); ``n_valid`` stays a Python int."""
-    device = torch.device(device)
+    copies on the current stream); ``n_valid`` stays a Python int. With
+    ``sharding`` (``parallel.batch_sharding(mesh)``) each batch is a list
+    of its mesh slots' batches instead, each slot's part of every array on
+    the slot's device, ``n_valid`` (the whole batch's) on each."""
+    if sharding is None:
+        device = torch.device(device)
+
+        def put(batch):
+            return _to_device(batch, device)
+    else:
+        def put(batch):
+            return _to_slots(batch, sharding)
     buf = collections.deque()
     it = iter(iterator)
     for batch in it:
-        buf.append(_to_device(batch, device))
+        buf.append(put(batch))
         if len(buf) >= size:
             break
     while buf:
         out = buf.popleft()
         nxt = next(it, None)
         if nxt is not None:
-            buf.append(_to_device(nxt, device))
+            buf.append(put(nxt))
         yield out

@@ -7,7 +7,11 @@ cascades return one full-resolution flow in pixels and train on its EPE
 (their sub-nets keep their inference normalisation). The step's metric is
 the full-resolution EPE: for the pyramid, flow2 times ``div_flow``
 enlarged by ``models/flownet.resize_bilinear``, which has held
-``jax.image.resize``'s weights since the flow nets were ported.
+``jax.image.resize``'s weights since the flow nets were ported. Under a
+process group of more than one rank (``parallel/distributed.py``) the
+gradients are averaged across the ranks before the optimizer's step, and
+the loss and EPE returned are the means over the equal shards: the global
+batch's.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import torch
 from flowtrack_tpu_torch.engine.loss import epe, multiscale_epe
 from flowtrack_tpu_torch.engine.train import TrainState
 from flowtrack_tpu_torch.models.flownet import resize_bilinear
+from flowtrack_tpu_torch.parallel.distributed import (all_reduce_mean,
+                                                      average_gradients,
+                                                      is_distributed)
 
 
 def flow_train_step(state: TrainState, batch, div_flow: float = 20.0):
@@ -38,7 +45,10 @@ def flow_train_step(state: TrainState, batch, div_flow: float = 20.0):
         loss = epe(flow_full, gt)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if is_distributed():
+        average_gradients(model.parameters())
     state.apply_gradients()
     with torch.no_grad():
         metric = epe(flow_full.detach(), gt)
-    return state, {"loss": loss.detach(), "epe": metric}
+    return state, {"loss": all_reduce_mean(loss.detach()),
+                   "epe": all_reduce_mean(metric)}

@@ -19,6 +19,13 @@ from flowtrack_tpu_torch.ops.decode import get_max_preds
 def heatmap_accuracy(pred_hm, gt_hm, thr: float = 0.5):
     """pred_hm, gt_hm (N, H, W, K) -> (mean accuracy, per-joint accuracy
     (K,) with -1 for joints never visible, visible count), tensors."""
+    return accuracy_from_counts(*joint_counts(pred_hm, gt_hm, thr))
+
+
+def joint_counts(pred_hm, gt_hm, thr: float = 0.5):
+    """pred_hm, gt_hm (N, H, W, K) -> per joint, (right, visible) counts
+    (K,): what ``heatmap_accuracy`` takes of a batch, which sums over the
+    shards of a batch split across devices."""
     n, h, w, k = pred_hm.shape
     pred, _ = get_max_preds(pred_hm)
     target, _ = get_max_preds(gt_hm)
@@ -27,11 +34,15 @@ def heatmap_accuracy(pred_hm, gt_hm, thr: float = 0.5):
     dists = torch.linalg.norm((pred - target) / norm, dim=-1)     # (N, K)
     visible = (target[..., 0] > 1.0) & (target[..., 1] > 1.0)     # (N, K)
     correct = (dists < thr) & visible
-    cnt_per_joint = visible.sum(0)                                 # (K,)
+    return correct.sum(0), visible.sum(0)                          # (K,)
+
+
+def accuracy_from_counts(correct, cnt_per_joint):
+    """``joint_counts``' sums -> ``heatmap_accuracy``'s triple."""
     acc_per_joint = torch.where(
         cnt_per_joint > 0,
-        correct.sum(0) / cnt_per_joint.clamp(min=1),
-        torch.tensor(-1.0, device=pred.device))
+        correct / cnt_per_joint.clamp(min=1),
+        torch.tensor(-1.0, device=correct.device))
     valid = acc_per_joint >= 0
     avg = (torch.where(valid, acc_per_joint, 0.0).sum()
            / valid.sum().clamp(min=1))

@@ -13,7 +13,12 @@ Port of ``flowtrack_tpu/engine/train.py``:
   running statistics updated as torch's BatchNorm2d does, which is the
   reference's ``BatchNormTorch``), JointsMSELoss, the backward, the
   optimizer's step at the step's rate, and the accuracy on the device, with
-  no host sync;
+  no host sync. Under a process group of more than one rank (one a mesh
+  slot, ``parallel/distributed.py``) it is the reference's step on a
+  sharded batch: the gradients are averaged across the ranks before the
+  optimizer's step, and the loss, accuracy and count returned are the
+  global batch's (batch norms see the global batch when converted by
+  ``convert_global_bn``);
 * ``pose_forward_fn``, ``pose_forward_args_fn`` and ``eval_step``
   (:105-144): the flip test as one double-batch forward
   (``pipeline.flip_test_heatmaps``), the decode and the rescoring on the
@@ -33,8 +38,13 @@ from torch import nn
 
 from flowtrack_tpu_torch.config import Config
 from flowtrack_tpu_torch.engine.loss import joints_mse_loss
-from flowtrack_tpu_torch.engine.metrics import heatmap_accuracy
+from flowtrack_tpu_torch.engine.metrics import (accuracy_from_counts,
+                                                heatmap_accuracy, joint_counts)
 from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
+from flowtrack_tpu_torch.parallel.distributed import (all_reduce_mean,
+                                                      all_reduce_sum,
+                                                      average_gradients,
+                                                      is_distributed)
 from flowtrack_tpu_torch.pipeline import flip_test_heatmaps
 
 
@@ -86,7 +96,8 @@ def train_step(state: TrainState, batch, use_target_weight: bool = True):
     """One step on ``batch`` {input (N, H, W, 3) normalised, target
     (N, h, w, K), target_weight (N, K)}, tensors on the model's device.
     Updates ``state`` in place; returns it and {loss, acc, cnt}, tensors on
-    the device."""
+    the device. Under a process group ``batch`` is this rank's equal shard
+    of the global batch (module docstring)."""
     model = state.model.train()
     out = model(batch["input"].permute(0, 3, 1, 2).contiguous())
     hm = out.permute(0, 2, 3, 1)
@@ -94,10 +105,19 @@ def train_step(state: TrainState, batch, use_target_weight: bool = True):
     loss = joints_mse_loss(hm, batch["target"], tw)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if is_distributed():
+        average_gradients(model.parameters())
     state.apply_gradients()
     with torch.no_grad():
-        acc, _, cnt = heatmap_accuracy(hm.detach(), batch["target"])
-    return state, {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        if not is_distributed():
+            acc, _, cnt = heatmap_accuracy(hm.detach(), batch["target"])
+            return state, {"loss": loss.detach(), "acc": acc, "cnt": cnt}
+        # the global batch's: the mean of equal shards' losses, and the
+        # accuracy of the right and visible joints summed over the shards
+        counts = all_reduce_sum(torch.stack(joint_counts(hm.detach(),
+                                                         batch["target"])))
+        acc, _, cnt = accuracy_from_counts(counts[0], counts[1])
+    return state, {"loss": all_reduce_mean(loss), "acc": acc, "cnt": cnt}
 
 
 def pose_forward_args_fn(flip_test: bool, flip_pairs,

@@ -148,11 +148,15 @@ def correlation_cuda(f1, f2, max_displacement: int = 20, stride2: int = 2):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         args = (f1.data_ptr(), f2.data_ptr(), out.data_ptr(), n, c, h, w,
                 max_displacement, stride2, d)
-        if route == "mma":
-            err = lib.ft_correlation_mma(*args, band_plan(c, w).kc, stream)
-        else:
-            err = lib.ft_correlation_forward(
-                *args, int(f1.dtype == torch.bfloat16), stream)
+        # the tensors' card current: the kernel's shared-memory attribute
+        # is set for the device cudaGetDevice reports
+        with torch.cuda.device(f1.device):
+            if route == "mma":
+                err = lib.ft_correlation_mma(*args, band_plan(c, w).kc,
+                                             stream)
+            else:
+                err = lib.ft_correlation_forward(
+                    *args, int(f1.dtype == torch.bfloat16), stream)
         kernels.check(err, "correlation")
         correlation_cuda.launches += 1
     return out

@@ -138,14 +138,17 @@ def crop_frames_cuda(frames, frame_idx, centers, scales, out_hw,
         m = (0.0, 0.0, 0.0) if mean is None else tuple(float(v) for v in mean)
         s = (1.0, 1.0, 1.0) if mean is None else tuple(float(v) for v in std)
         r = 1.0 if mean is None else float(rgb_max)
-        err = kernels.library().ft_crop_resize_normalize(
-            frames.data_ptr(), int(frames.dtype == torch.uint8), n_frames, h,
-            w, idx.data_ptr(), int(idx.dtype == torch.int64),
-            centers.data_ptr(), scales.data_ptr(), p, out_h, out_w,
-            PIXEL_STD, r, *m, *s, out.data_ptr(),
-            int(out_dtype == torch.bfloat16),
-            None if band_counts is None else band_counts.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        # the frames' card current, so that the launch and its stream are
+        # that card's whichever device the caller made current
+        with torch.cuda.device(dev):
+            err = kernels.library().ft_crop_resize_normalize(
+                frames.data_ptr(), int(frames.dtype == torch.uint8), n_frames,
+                h, w, idx.data_ptr(), int(idx.dtype == torch.int64),
+                centers.data_ptr(), scales.data_ptr(), p, out_h, out_w,
+                PIXEL_STD, r, *m, *s, out.data_ptr(),
+                int(out_dtype == torch.bfloat16),
+                None if band_counts is None else band_counts.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         kernels.check(err, "crop")
         crop_frames_cuda.launches += 1
     return out.permute(0, 2, 3, 1)

@@ -452,7 +452,14 @@ def _check_input(x) -> None:
 
 def _launch_stage(x, blocks: list):
     """Launch K5 over ``_unpack_params``' blocks, each in the form
-    ``block_form`` gives its shape."""
+    ``block_form`` gives its shape, with x's card current: the launches,
+    their stream and the kernels' per-device shared-memory attribute are
+    that card's whichever device the caller made current."""
+    with torch.cuda.device(x.device):
+        return _launch_blocks(x, blocks)
+
+
+def _launch_blocks(x, blocks: list):
     b, h, w, _ = x.shape
     m = b * h * w
     lib = kernels.library()

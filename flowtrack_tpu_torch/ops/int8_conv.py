@@ -158,4 +158,5 @@ def int8_conv2d(xq, wq, stride: int, padding: int, transpose: bool = False):
     if xq.device.type != "cuda":
         raise RuntimeError(f"int8 conv runs on CPU or CUDA tensors, got "
                            f"{xq.device}")
-    return int8_conv2d_gemm(xq, wq, stride, padding, transpose)
+    with torch.cuda.device(xq.device):
+        return int8_conv2d_gemm(xq, wq, stride, padding, transpose)

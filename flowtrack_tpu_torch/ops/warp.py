@@ -117,10 +117,12 @@ def resample2d_cuda(img, flow):
     n, c, h, w = img.shape
     out = torch.empty_like(img)
     if out.numel():
-        err = kernels.library().ft_resample2d_forward(
-            img.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
-            int(img.dtype == torch.bfloat16), int(flow.dtype == torch.bfloat16),
-            torch.cuda.current_stream(img.device).cuda_stream)
+        with torch.cuda.device(img.device):
+            err = kernels.library().ft_resample2d_forward(
+                img.data_ptr(), flow.data_ptr(), out.data_ptr(), n, c, h, w,
+                int(img.dtype == torch.bfloat16),
+                int(flow.dtype == torch.bfloat16),
+                torch.cuda.current_stream(img.device).cuda_stream)
         kernels.check(err, "resample2d")
         resample2d_cuda.launches += 1
     return out

@@ -5,7 +5,8 @@ Port of ``flowtrack_tpu/serving.py``: ``tracks_of_frame`` (serving.py:42),
 port's ``ClipTracker``, whose batched ``run_prepared_lanes`` takes one ready
 clip of each stream as a lane: flow, crops (one K1 launch per pose pass)
 and pose run once for all lanes, and the scans carry the lanes in each
-step.
+step. With ``sharding`` the lanes of a step split over a mesh of devices
+(``ClipTracker.run_sharded_lanes``), the multi-device serving layout.
 
 Usage:
     mst = MultiStreamTracker(tracker, clip_len=64, batch_streams=6)
@@ -21,8 +22,13 @@ carries across its own clips as a device-resident seed, so ids survive clip
 boundaries, including a person occluded exactly at one. Streams share
 nothing: ids are per stream.
 
-The reference's ``sharding=`` (the clip axis split over a mesh) is not
-ported yet.
+With ``sharding=parallel.batch_sharding(mesh)`` a step whose lane count
+divides the mesh runs each slot's lanes on its device's replica of the
+tracker, every slot dispatched before any is fetched; a forced partial
+step that does not divide runs on the mesh's first device, as the
+reference's does (serving.py:278-284). A stream's seed stays on the device
+its lane last ran on and is copied device to device when a later step
+places the stream elsewhere.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ from typing import Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 
-from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker, pad_detections
+from flowtrack_tpu_torch.parallel.mesh import NamedSharding
+from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
+                                                        pad_detections,
+                                                        slot_device, seed_to)
 from flowtrack_tpu_torch.utils.video import pad_tail_clip
 
 
@@ -101,15 +110,19 @@ class MultiStreamTracker:
 
     ``batch_streams`` ready clips run per batched call (fewer only when
     ``step(force=True)`` drains a partial set: keep ``force`` for shutdown
-    and latency escapes)."""
+    and latency escapes). ``sharding`` (``parallel.batch_sharding(mesh)``)
+    splits the clip axis across a mesh, the multi-device serving layout."""
 
     def __init__(self, tracker: ClipTracker, clip_len: int = 64,
-                 batch_streams: int = 4, pipeline_depth: int = 0):
+                 batch_streams: int = 4,
+                 sharding: Optional[NamedSharding] = None,
+                 pipeline_depth: int = 0):
         if clip_len < 2:
             raise ValueError("clip_len must be >= 2 (1-frame clip overlap)")
         self.tracker = tracker
         self.clip_len = clip_len
         self.batch_streams = batch_streams
+        self.sharding = sharding
         # pipeline_depth=1: step() DISPATCHES the current ready batch
         # (CUDA work is asynchronous) and returns the PREVIOUS batch's
         # emissions — host-side clip prep + H2D of batch t+1 overlap the
@@ -232,40 +245,56 @@ class MultiStreamTracker:
         self._frames[sid] = self._frames[sid][self.clip_len - 1:]
         return start_global, skip
 
-    def _dispatch(self, sids) -> tuple:
+    def _dispatch(self, sids) -> list:
         """Queue one batched run of these streams' ready clips, a lane each
         (asynchronous on a CUDA device): the lanes' frames stacked on the
-        host and copied once. Updates the device-side seeds and the stream
-        state; returns the pending entry for _fetch."""
+        host and copied once per device. With ``sharding`` and a lane count
+        that divides the mesh, each slot's lanes run on its device
+        (``ClipTracker.run_sharded_lanes``); otherwise all run on the
+        tracker's device, or on the mesh's first. Updates the device-side
+        seeds and the stream state; returns the pending entry for _fetch:
+        one (device outputs, lane metas) per device group."""
         bufs = [self._frames[sid][:self.clip_len] for sid in sids]
         frames = np.stack([f for buf in bufs for f, _, _ in buf])
         dets = [pad_detections([b for _, b, _ in buf], [s for _, _, s in buf],
                                self.max_persons) for buf in bufs]
-        args = self.tracker.prepare_lanes(
-            frames.reshape(len(sids), self.clip_len, *frames.shape[1:]),
-            *(np.stack(x) for x in zip(*dets)),
-            frame_offsets=[self._first_global(sid) for sid in sids])
-        out_dev = self.tracker.run_prepared_lanes(
-            args, [self._seed[sid] for sid in sids])
-        metas = []
-        for lane, sid in enumerate(sids):
-            # per-lane seed slices stay on the device
-            self._seed[sid] = tuple(leaf[lane] for leaf in out_dev[5])
-            metas.append((sid, lane) + self._advance(sid))
-        return (out_dev[:5], metas)
+        host = (frames.reshape(len(sids), self.clip_len, *frames.shape[1:]),
+                *(np.stack(x) for x in zip(*dets)))
+        offsets = [self._first_global(sid) for sid in sids]
+        seeds = [self._seed[sid] for sid in sids]
+        if (self.sharding is not None
+                and len(sids) % self.sharding.mesh.size == 0):
+            parts = self.tracker.run_sharded_lanes(
+                self.sharding, *host, seeds=seeds, frame_offsets=offsets)
+        else:
+            tracker = self.tracker if self.sharding is None else \
+                self.tracker.replica(slot_device(self.sharding.mesh, {}))
+            args = tracker.prepare_lanes(*host, frame_offsets=offsets)
+            parts = [(slice(0, len(sids)), tracker.run_prepared_lanes(
+                args, [seed_to(s, tracker.device) for s in seeds]))]
+        entry = []
+        for lanes, out_dev in parts:
+            metas = []
+            for lane, sid in enumerate(sids[lanes]):
+                # per-lane seed slices stay on the lane's device
+                self._seed[sid] = tuple(leaf[lane] for leaf in out_dev[5])
+                metas.append((sid, lane) + self._advance(sid))
+            entry.append((out_dev[:5], metas))
+        return entry
 
     def _fetch(self, entry) -> list:
         """Copy a dispatched batch to the host and build its emissions: one
-        copy per output tensor of the batch, then numpy slices per lane."""
-        out_dev, metas = entry
-        host = self.tracker.to_host((*out_dev, None))
+        copy per output tensor of each device group, then numpy slices per
+        lane."""
         results = []
-        for sid, lane, start, skip in metas:
-            out = {k: v[lane] for k, v in host.items()}
-            tracks = [tracks_of_frame(out, t)
-                      for t in range(skip, out["valid"].shape[0])]
-            self._record_latency(sid, len(tracks))
-            results.append((sid, start, tracks))
+        for out_dev, metas in entry:
+            host = self.tracker.to_host((*out_dev, None))
+            for sid, lane, start, skip in metas:
+                out = {k: v[lane] for k, v in host.items()}
+                tracks = [tracks_of_frame(out, t)
+                          for t in range(skip, out["valid"].shape[0])]
+                self._record_latency(sid, len(tracks))
+                results.append((sid, start, tracks))
         return results
 
     def step(self, force: bool = False):
@@ -325,7 +354,7 @@ class MultiStreamTracker:
                                         frame_offset=self._first_global(sid))
             out_dev = self.tracker.run_prepared(
                 args, budget_frames=real if real < self.clip_len else None,
-                seed=self._seed[sid])
+                seed=seed_to(self._seed[sid], self.tracker.device))
             out = self.tracker.to_host(out_dev)
             tracks = [tracks_of_frame(out, t) for t in range(skip, real)]
             self._record_latency(sid, len(tracks))

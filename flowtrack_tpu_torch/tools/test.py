@@ -2,10 +2,13 @@
 
 Port of ``tools/test.py``: ``build_val_dataset`` (:37), ``run_validation``
 (:59) and ``main`` (:126), with the same arguments but the XLA compile
-cache's, and ``--device`` (default ``cuda``). The validate loop on one
-device: batches copied ahead to the device, the pose net on the inputs and
-their mirror images with the flip merge, decode and rescoring there
-(``engine/train.eval_step``); then, on the host, OKS-NMS and COCO AP (or
+cache's, and ``--device`` (default ``cuda``). The validate loop over a
+mesh of devices (``mesh.*``: by default every card, or the one device
+asked for): batches of ``test.batch_size`` times the mesh's size, each
+slot's part copied ahead to its device, where a replica of the pose net
+runs the inputs and their mirror images with the flip merge, decode and
+rescoring (``engine/train.eval_step``), every slot dispatched before the
+results are gathered in order; then, on the host, OKS-NMS and COCO AP (or
 PCKh for MPII) with the port's evaluators.
 
     python3 -m flowtrack_tpu_torch.tools.test --weights pose.npz \\
@@ -31,7 +34,7 @@ from flowtrack_tpu_torch.data import (BatchLoader, COCODataset, MPIIDataset,
                                       PoseTrackDataset)
 from flowtrack_tpu_torch.data.loader import device_prefetch
 from flowtrack_tpu_torch.engine.train import eval_step, pose_forward_fn
-from flowtrack_tpu_torch.pipeline import model_device
+from flowtrack_tpu_torch.parallel import batch_sharding, mesh_for, replicas
 from flowtrack_tpu_torch.tools.common import add_device_arg, pose_net
 from flowtrack_tpu_torch.utils.logging import setup_logging
 from flowtrack_tpu_torch.utils.vis import save_debug_images
@@ -55,36 +58,50 @@ def build_val_dataset(cfg):
 
 
 def run_validation(cfg, model, output_dir=None, dataset=None,
-                   debug_dir=None, device="cuda"):
+                   debug_dir=None, device="cuda", mesh=None):
     """Returns the eval stats dict (AP table for COCO, PCKh for MPII).
-    ``model``: the PoseResNet with its weights, moved to ``device`` and put
-    in eval mode. ``debug_dir``: the first batch's crops with predicted
-    skeletons and per-joint heatmap grids (``vis.save_debug_images``)."""
+    ``model``: the PoseResNet with its weights, put in eval mode and
+    replicated on the mesh's devices (``mesh`` None:
+    ``mesh_for(device, cfg.mesh.num_devices, cfg.mesh.data_axis)``).
+    ``debug_dir``: the first batch's crops with predicted skeletons and
+    per-joint heatmap grids (``vis.save_debug_images``)."""
     if dataset is None:
         dataset = build_val_dataset(cfg)
     flip_pairs = (MPII_FLIP_PAIRS if cfg.data.dataset == "mpii"
                   else COCO_FLIP_PAIRS)
-    device = model_device(device)
-    model = model.to(device).eval()
-    loader = BatchLoader(dataset, cfg.test.batch_size, pad_to_batch=True)
+    if mesh is None:
+        mesh = mesh_for(device, cfg.mesh.num_devices, cfg.mesh.data_axis)
+    models = [m.eval() for m in replicas(mesh, model.to(mesh.flat()[0]))]
+    loader = BatchLoader(dataset, cfg.test.batch_size * mesh.size,
+                         pad_to_batch=True)
 
     all_preds, all_maxvals, all_scores, all_ids = [], [], [], []
     dumped = False
     with torch.inference_mode():
-        for batch in device_prefetch(loader, device):
-            n = batch["n_valid"]
-            out = eval_step(model, batch, cfg, flip_pairs)
+        for slots in device_prefetch(loader,
+                                     sharding=batch_sharding(mesh)):
+            n = slots[0]["n_valid"]
+            # every slot dispatched before any result is fetched
+            outs = [eval_step(m, b, cfg, flip_pairs)
+                    for m, b in zip(models, slots)]
             if debug_dir and not dumped:
-                hm = pose_forward_fn(model, cfg.test.flip_test, flip_pairs,
-                                     cfg.test.shift_heatmap)(batch["input"])
-                save_debug_images(batch["input"][:n].float().cpu().numpy(),
-                                  hm[:n].float().cpu().numpy(), debug_dir,
+                fwd = pose_forward_fn(models[0], cfg.test.flip_test,
+                                      flip_pairs, cfg.test.shift_heatmap)
+                inputs = torch.cat([b["input"].cpu() for b in slots])
+                hm = torch.cat([fwd(b["input"]).cpu() for b in slots])
+                save_debug_images(inputs[:n].float().numpy(),
+                                  hm[:n].float().numpy(), debug_dir,
                                   prefix=cfg.data.dataset)
                 dumped = True
-            all_preds.append(out["preds"][:n].cpu().numpy())
-            all_maxvals.append(out["maxvals"][:n].cpu().numpy())
-            all_scores.append(out["scores"][:n].cpu().numpy())
-            all_ids.append(batch["image_id"][:n].cpu().numpy())
+
+            def gathered(key):
+                return torch.cat([o[key].cpu() for o in outs])[:n].numpy()
+
+            all_preds.append(gathered("preds"))
+            all_maxvals.append(gathered("maxvals"))
+            all_scores.append(gathered("scores"))
+            all_ids.append(torch.cat([b["image_id"].cpu()
+                                      for b in slots])[:n].numpy())
 
     preds = np.concatenate(all_preds)
     maxvals = np.concatenate(all_maxvals)

@@ -1,8 +1,13 @@
 """Train or fine-tune a FlowNet on an optical-flow corpus.
 
 Port of ``tools/train_flow.py`` (``main`` :45), with the same arguments but
-the XLA compile cache's, and ``--device`` (default ``cuda``). One device,
-so ``--batch`` is the whole batch (the reference's is per device). Each
+the XLA compile cache's, and ``--device`` (default ``cuda``). As in the
+reference, ``--batch`` is per device of the mesh (``mesh.*``, as in
+``tools/train.py``), the global batch that times the mesh's size; a mesh
+of more than one slot runs the epochs in one process a slot
+(``parallel/distributed.run_on_mesh``), each rank taking its part of every
+global batch and averaging the gradients, rank 0 alone validating,
+checkpointing and writing. Each
 epoch: ``data/flow_dataset.flow_batches`` over a FlyingChairs-style
 (``--triplets``) or Sintel-style (``--frames`` + ``--gt-flow``) corpus,
 random crops to the /64 ``--crop`` and flips, shuffled with the epoch as
@@ -40,6 +45,7 @@ from flowtrack_tpu_torch.engine.metrics import AverageMeter
 from flowtrack_tpu_torch.engine.train import create_train_state
 from flowtrack_tpu_torch.models.flownet import (get_flow_net, postprocess_flow,
                                                 preprocess_pair)
+from flowtrack_tpu_torch.parallel import distributed, mesh_for, part
 from flowtrack_tpu_torch.pipeline import model_device
 from flowtrack_tpu_torch.tools.common import add_device_arg
 from flowtrack_tpu_torch.utils.convert import FLOW_CONVERTERS
@@ -53,8 +59,10 @@ def flow_tree(model, variant: str) -> dict:
     return FLOW_CONVERTERS[variant].convert(model.state_dict())
 
 
-def _on(b, device):
-    return [torch.as_tensor(b[k]).to(device, non_blocking=True)
+def _on(b, device, share=(0, 1)):
+    """The batch's pairs and flows on ``device``: the ``share[0]``-th of
+    ``share[1]`` equal parts (a rank's share of a global batch)."""
+    return [torch.as_tensor(part(b[k], *share)).to(device, non_blocking=True)
             for k in ("im1", "im2", "flow")]
 
 
@@ -89,7 +97,7 @@ def main(argv=None):
                     metavar=("H", "W"),
                     help="static /64-divisible train crop")
     ap.add_argument("--batch", type=int, default=8,
-                    help="batch on the one device")
+                    help="batch per device of the mesh")
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--out", default="flownet_trained.npz")
     ap.add_argument("--ckpt-dir", default=None,
@@ -111,27 +119,54 @@ def main(argv=None):
     setup_logging()
 
     cfg = apply_overrides(get_config(args.cfg), args.opts)
-    device = model_device(args.device)
+    ch, cw = args.crop
+    if ch % 64 or cw % 64:
+        raise SystemExit("--crop must be /64-divisible (FlowNet encoders)")
+    mesh = mesh_for(model_device(args.device), cfg.mesh.num_devices,
+                    cfg.mesh.data_axis)
+    log.info("mesh: %s, global batch %d", mesh, args.batch * mesh.size)
+    if mesh.size == 1:
+        return train_epochs(args, cfg, model_device(args.device))
+    out = distributed.run_on_mesh(train_epochs, mesh, args, cfg)
+    model = get_flow_net(cfg.flow)
+    model.load_state_dict(out["model"])
+    state = create_train_state(model, cfg, out["steps_per_epoch"])
+    state.optimizer.load_state_dict(out["optimizer"])
+    state.step = out["step"]
+    return state
+
+
+def train_epochs(args, cfg, device=None):
+    """The epoch loop on ``device`` (in a rank of a mesh: the rank's
+    device, its part of each global batch). Returns the TrainState; a rank
+    returns its model's and optimizer's state dicts on the CPU, its step
+    and the steps an epoch."""
+    ranks = distributed.world_size()
+    rank0 = distributed.rank() == 0
+    share = (distributed.rank(), ranks)
+    if device is None:
+        device = distributed.rank_device()
+    ch, cw = args.crop
+    global_batch = args.batch * ranks
     metrics = MetricsWriter(
         os.path.join(args.ckpt_dir or
                      os.path.dirname(os.path.abspath(args.out)) or ".",
                      "metrics.jsonl"),
-        tensorboard_dir=args.tensorboard)
-    ch, cw = args.crop
-    if ch % 64 or cw % 64:
-        raise SystemExit("--crop must be /64-divisible (FlowNet encoders)")
+        tensorboard_dir=args.tensorboard) if rank0 else None
     ds = FlowPairDataset(root=args.triplets, frames_dir=args.frames,
                          flow_dir=args.gt_flow, crop_size=(ch, cw),
                          is_train=True)
     log.info("flow corpus: %d pairs, crop %dx%d, batch %d", len(ds), ch, cw,
-             args.batch)
+             global_batch)
 
     model = get_flow_net(cfg.flow,
                          generator=torch.Generator().manual_seed(0))
     model = model.to(device)
+    if ranks > 1:
+        distributed.convert_global_bn(model)
     # the lr milestones (train.lr_steps) are epochs: the schedule counts
     # them in steps of this corpus
-    steps_per_epoch = max(1, -(-len(ds) // args.batch))
+    steps_per_epoch = max(1, -(-len(ds) // global_batch))
     state = create_train_state(model, cfg, steps_per_epoch)
     div_flow, rgb_max = cfg.flow.div_flow, cfg.flow.rgb_max
 
@@ -150,6 +185,7 @@ def main(argv=None):
         mgr = CheckpointManager(args.ckpt_dir)
         if args.resume:
             state, epoch = mgr.restore(state)
+            distributed.broadcast_state(state)
             start_epoch = epoch + 1
             log.info("resumed from epoch %d", epoch)
 
@@ -157,13 +193,18 @@ def main(argv=None):
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         meter.reset()
-        for b in flow_batches(ds, args.batch, shuffle=True, seed=epoch,
+        # every rank draws the global batches (their crops share one
+        # generator) and trains on its part
+        for b in flow_batches(ds, global_batch, shuffle=True, seed=epoch,
                               drop_last=False):
-            im1, im2, fl = _on(b, device)
+            im1, im2, fl = _on(b, device, share)
             batch = {"input": preprocess_pair(im1, im2, rgb_max),
                      "flow": fl}
             state, m = flow_train_step(state, batch, div_flow=div_flow)
             meter.update(float(m["epe"]), n=len(b["im1"]))
+        if not rank0:
+            distributed.barrier()
+            continue
         line = {"epoch": epoch, "epe": round(meter.avg, 4),
                 "seconds": round(time.time() - t0, 1)}
         if val_ds is not None:
@@ -175,11 +216,18 @@ def main(argv=None):
         if mgr is not None:
             # the best is the LOWEST epe; CheckpointManager keeps the max
             mgr.save(epoch, state, perf=-line.get("val_epe", line["epe"]))
+        distributed.barrier()
+    if not rank0:
+        return None
     metrics.close()
 
     save_npz_variables(args.out, flow_tree(model, cfg.flow.variant))
     log.info("saved %s", args.out)
-    return state
+    if ranks == 1:
+        return state
+    return {"model": distributed.to_cpu(model.state_dict()),
+            "optimizer": distributed.to_cpu(state.optimizer.state_dict()),
+            "step": state.step, "steps_per_epoch": steps_per_epoch}
 
 
 if __name__ == "__main__":

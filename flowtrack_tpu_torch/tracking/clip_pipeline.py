@@ -43,12 +43,22 @@ stage runs in a ``torch.profiler.record_function`` range named
 ``clip.<stage>``, which a profile of the eager ``_clip`` shows (a replayed
 graph has no host ranges).
 
+Over a mesh of devices (``parallel/mesh.py``): ``track_clips(sharding=)``
+splits the lanes into one group per mesh slot, each run by this tracker's
+``replica`` on the slot's device (its own nets, graphs and pool), every
+group dispatched before any is fetched, as the reference's clips axis
+sharded over its chips (:540); ``track_clip(frame_sharding=)`` splits one
+clip's frames (``run_frame_sharded``: stages 1 and 2 on each device's
+chunk, stages 3 and 4 on the first device), and a 2-D ``("clip",
+"frame")`` sharding of ``track_clips`` does both.
+
 Differences from the reference: ``real_frames`` is shared by every lane;
-``frame_sharding`` and ``track_clips``' ``sharding`` are not ported yet.
+the frame-sharded route runs eagerly (no graph).
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import time
 from typing import Optional, Sequence
@@ -74,6 +84,8 @@ from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
 from flowtrack_tpu_torch.ops.fused_resnet import FusedPoseResNet
 from flowtrack_tpu_torch.ops.nms import iou_matrix
 from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
+from flowtrack_tpu_torch.parallel.mesh import (NamedSharding, normal_device,
+                                               pad_to_multiple, part)
 from flowtrack_tpu_torch.pipeline import (
     batched_box_to_center_scale,
     flip_test_heatmaps,
@@ -206,7 +218,15 @@ class ClipGraph:
     fails raises; there is no eager fallback."""
 
     def __init__(self, clip_fn, args, real_frames, state, pool, stream):
-        dev = args[0].device
+        self.device = args[0].device
+        # capture with the tracker's card current: the kernels' launches
+        # and their per-device attributes, and the capture's allocations,
+        # are that card's whichever device the caller made current
+        with torch.cuda.device(self.device):
+            self._capture(clip_fn, args, real_frames, state, pool, stream)
+
+    def _capture(self, clip_fn, args, real_frames, state, pool, stream):
+        dev = self.device
         self.held = [o.detach() if isinstance(o, torch.Tensor) else o
                      for o in state]
         self.inputs = [a.clone() for a in args]
@@ -232,12 +252,13 @@ class ClipGraph:
     def run(self, args, real_frames=None):
         """Fill the inputs, replay, and return clones of the outputs in
         ``_clip``'s structure."""
-        for buf, a in zip(self.inputs, args):
-            buf.copy_(a)
-        if self.real is not None:
-            self.real.copy_(real_frames)
-        self.graph.replay()
-        out = [t.clone() for t in self.outputs]
+        with torch.cuda.device(self.device):
+            for buf, a in zip(self.inputs, args):
+                buf.copy_(a)
+            if self.real is not None:
+                self.real.copy_(real_frames)
+            self.graph.replay()
+            out = [t.clone() for t in self.outputs]
         return (*out[:5], tuple(out[5:]))
 
 
@@ -273,6 +294,28 @@ class ClipTracker:
         self.graphs: dict = {}
         self._state_key = None
         self._capture = None
+        # the trackers of other devices of a mesh (``replica``), built
+        # while the nets held the tensors ``_replica_key`` names
+        self._replicas: dict = {}
+        self._replica_key = None
+
+    def replica(self, device) -> "ClipTracker":
+        """This tracker on ``device``: itself on its own device, else a
+        tracker of copies of its nets there, built at first use (and again
+        after the nets' tensors changed), with its own graphs and pool."""
+        device = normal_device(device)
+        if device == normal_device(self.device):
+            return self
+        key = state_key(clip_state(self.pose_model, self.flow_model))
+        if key != self._replica_key:
+            self._replicas.clear()
+            self._replica_key = key
+        rep = self._replicas.get(device)
+        if rep is None:
+            rep = self._replicas[device] = ClipTracker(
+                self.cfg, copy.deepcopy(self.pose_model),
+                copy.deepcopy(self.flow_model), self.max_persons, device)
+        return rep
 
     # ---- stage 2 building blocks
     def _pose_heatmaps(self, crops):
@@ -427,28 +470,25 @@ class ClipTracker:
                                  cfg.flow.div_flow)
         return flows.reshape(c, f - 1, h, w, 2)
 
-    def _clip(self, frames, centers, scales, det_scores, det_valid,
-              det_boxes, frame_valid, seed_joints, seed_valid, seed_scores,
-              seed_ages, seed_ids, next_id0, real_frames=None):
-        """The clip program. Every tensor argument carries the leading lane
-        axis C; ``real_frames`` (None for a full clip) is the real frame
-        count of clips padded with invalid frames, a device int32
-        scalar."""
-        tcfg = self.cfg.track
+    def _flow_pass(self, frames):
+        """Stage 1 with its profiler range: (C, F, H, W, 3) frames -> the
+        (C, F-1, H, W, 2) flows of each lane's pairs, none for one frame."""
+        c, f, h, w = frames.shape[:4]
+        with record_function("clip.flow"):
+            return self._flows(frames) if f > 1 else torch.zeros(
+                (c, 0, h, w, 2), device=frames.device)
+
+    def _pose_pass(self, frames, centers, scales, det_scores, det_valid):
+        """Stage 2: pose on all detector persons of all frames, one crop
+        launch. frames (C, F, H, W, 3), centers and scales (C, F, P, 2),
+        det_scores and det_valid (C, F, P) -> preds (C, F, P, K, 2),
+        maxvals (C, F, P, K), scores and valid (C, F, P)."""
         c, f, h, w, _ = frames.shape
         p = centers.shape[2]
-        dev = frames.device
-
-        # 1. flow on all pairs of all lanes, one call
-        with record_function("clip.flow"):
-            flows = self._flows(frames) if f > 1 else torch.zeros(
-                (c, 0, h, w, 2), device=dev)
-
-        # 2. pose on all detector persons of all frames: one crop launch
         frames = frames.reshape(c * f, h, w, 3)
         with record_function("clip.pose"):
-            frame_idx = torch.arange(c * f, device=dev)[:, None].expand(
-                c * f, p).reshape(-1)
+            frame_idx = torch.arange(c * f, device=frames.device)[
+                :, None].expand(c * f, p).reshape(-1)
             centers_flat = centers.reshape(-1, 2)
             scales_flat = scales.reshape(-1, 2)
             crops = self._crop(frames, frame_idx, centers_flat, scales_flat)
@@ -457,7 +497,36 @@ class ClipTracker:
         preds = preds.reshape(c, f, p, -1, 2)
         maxvals = maxvals.reshape(c, f, p, -1)
         scores = scores.reshape(c, f, p)
-        valid = det_valid & (scores >= tcfg.pose_score_thre)
+        valid = det_valid & (scores >= self.cfg.track.pose_score_thre)
+        return preds, maxvals, scores, valid
+
+    def _clip(self, frames, centers, scales, det_scores, det_valid,
+              det_boxes, frame_valid, seed_joints, seed_valid, seed_scores,
+              seed_ages, seed_ids, next_id0, real_frames=None):
+        """The clip program. Every tensor argument carries the leading lane
+        axis C; ``real_frames`` (None for a full clip) is the real frame
+        count of clips padded with invalid frames, a device int32
+        scalar."""
+        c, f, h, w, _ = frames.shape
+        # 1. flow on all pairs of all lanes, one call
+        flows = self._flow_pass(frames)
+        # 2. pose on all detector persons of all frames: one crop launch
+        pose = self._pose_pass(frames, centers, scales, det_scores,
+                               det_valid)
+        return self._track(frames.reshape(c * f, h, w, 3), flows, *pose,
+                           det_boxes, frame_valid, seed_joints, seed_valid,
+                           seed_scores, seed_ages, seed_ids, next_id0,
+                           real_frames)
+
+    def _track(self, frames, flows, preds, maxvals, scores, valid, det_boxes,
+               frame_valid, seed_joints, seed_valid, seed_scores, seed_ages,
+               seed_ids, next_id0, real_frames=None):
+        """Stages 3 and 4 on the flows and the pose pass of C lanes of F
+        frames (``frames`` (C*F, H, W, 3)): the recovery scan and its
+        budgeted pose pass, then the id scan; -> ``_clip``'s outputs."""
+        tcfg = self.cfg.track
+        c, f, p = valid.shape
+        dev = frames.device
 
         # 3. detector-miss recovery (second, budgeted pose pass)
         ages = torch.zeros((c, f, p), dtype=torch.int32, device=dev)
@@ -529,6 +598,26 @@ class ClipTracker:
         argument tuple of run_prepared_lanes, each tensor with a leading C.
         ``frame_offsets[i]`` is lane i's first global frame index, so
         keyframe masking follows each video's cadence."""
+        return self.put_lanes(self.host_lanes(
+            frames, det_boxes, det_scores, det_valid, frame_valid,
+            frame_offsets))
+
+    def put_lanes(self, host_args):
+        """``host_lanes``' arrays -> run_prepared_lanes' tensors on this
+        tracker's device, one copy per tensor."""
+        dtypes = (None, None, None, torch.float32, torch.bool, None,
+                  torch.bool)
+        return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                     device=self.device)
+                     for a, dt in zip(host_args, dtypes))
+
+    def host_lanes(self, frames: np.ndarray, det_boxes: np.ndarray,
+                   det_scores: np.ndarray, det_valid: np.ndarray,
+                   frame_valid: Optional[np.ndarray] = None,
+                   frame_offsets: Optional[Sequence[int]] = None):
+        """``prepare_lanes``' host half: its seven arguments as numpy
+        arrays (frames, centers, scales, det_scores, det_valid, xyxy boxes,
+        frame_valid), each with the leading lane axis."""
         c, f, p = det_scores.shape
         if frame_valid is None:
             frame_valid = np.ones((c, f), bool)
@@ -549,16 +638,9 @@ class ClipTracker:
                 boxes_t, self.aspect_ratio)
             boxes_xyxy[t] = np.concatenate(
                 [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
-        dev = self.device
-
-        def put(a, dtype=None):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=dev)
-
-        return (put(frames), put(centers.reshape(c, f, p, 2)),
-                put(scales.reshape(c, f, p, 2)), put(det_scores, torch.float32),
-                put(det_valid, torch.bool), put(boxes_xyxy.reshape(c, f, p, 4)),
-                put(frame_valid, torch.bool))
+        return (frames, centers.reshape(c, f, p, 2), scales.reshape(c, f, p, 2),
+                det_scores, det_valid, boxes_xyxy.reshape(c, f, p, 4),
+                frame_valid)
 
     def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
                 det_scores: np.ndarray, det_valid: np.ndarray,
@@ -642,28 +724,159 @@ class ClipTracker:
                 "valid": valid}
 
     def track_clips(self, frames: np.ndarray, det_boxes: np.ndarray,
-                    det_scores: np.ndarray, det_valid: np.ndarray):
+                    det_scores: np.ndarray, det_valid: np.ndarray,
+                    sharding: Optional[NamedSharding] = None):
         """Independent clips in one batched run: frames (C, F, H, W, 3),
         det_boxes (C, F, P, 4) xywh, det_scores and det_valid (C, F, P);
         every lane starts from the empty seed. Returns the track_clip dict
-        with a leading C."""
-        return self.to_host(self.run_prepared_lanes(self.prepare_lanes(
-            frames, det_boxes, det_scores, det_valid)))
+        with a leading C.
+
+        ``sharding`` (``parallel.batch_sharding(mesh)``) splits the clip
+        axis over the mesh, pure data parallelism with no collective: each
+        slot's lanes run on that device's replica (``run_sharded_lanes``).
+        A 2-D ``NamedSharding(mesh, ("clip", "frame"))`` also splits each
+        group's frames over the second axis (``run_frame_sharded``)."""
+        if sharding is None:
+            return self.to_host(self.run_prepared_lanes(self.prepare_lanes(
+                frames, det_boxes, det_scores, det_valid)))
+        hosts = [self.to_host(out) for _, out in self.run_sharded_lanes(
+            sharding, frames, det_boxes, det_scores, det_valid)]
+        return {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
+
+    def run_sharded_lanes(self, sharding: NamedSharding, frames, det_boxes,
+                          det_scores, det_valid, seeds=None,
+                          frame_offsets=None) -> list:
+        """C clips' host arrays (``prepare_lanes``' arguments) split on the
+        lane axis by ``sharding.spec[0]``'s mesh axis into equal groups,
+        each prepared and dispatched on its slot's device (this tracker's
+        ``replica`` there) before any is fetched; with a second entry in
+        the spec, each group's frames split over that axis
+        (``run_frame_sharded``). Lane i is seeded by ``seeds[i]`` (moved to
+        its group's device). Returns one (lanes slice, device result) per
+        group, in lane order."""
+        mesh = sharding.mesh
+        c = np.shape(det_scores)[0]
+        groups = sharding.parts(0)
+        if c % groups:
+            raise ValueError(f"{c} clips do not divide into the {groups} "
+                             f"slots of mesh axis {sharding.spec[0]!r}")
+        frame_axis = sharding.spec[1] if len(sharding.spec) > 1 else None
+        seeds = list(seeds) if seeds is not None else [None] * c
+        offsets = (list(frame_offsets) if frame_offsets is not None
+                   else [0] * c)
+        results = []
+        for g in range(groups):
+            lanes = slice(g * (c // groups), (g + 1) * (c // groups))
+            where = ({sharding.spec[0]: g} if sharding.spec[0] is not None
+                     else {})
+            args = tuple(part(np.asarray(a), g, groups)
+                         for a in (frames, det_boxes, det_scores, det_valid))
+            if frame_axis is None:
+                rep = self.replica(slot_device(mesh, where))
+                out = rep.run_prepared_lanes(
+                    rep.prepare_lanes(*args, frame_offsets=offsets[lanes]),
+                    [seed_to(s, rep.device) for s in seeds[lanes]])
+            else:
+                devices = [slot_device(mesh, {**where, frame_axis: j})
+                           for j in range(mesh.shape[frame_axis])]
+                out = self.run_frame_sharded(
+                    devices, *args, seeds=seeds[lanes],
+                    frame_offsets=offsets[lanes])
+            results.append((lanes, out))
+        return results
+
+    @torch.inference_mode()
+    def run_frame_sharded(self, devices, frames, det_boxes, det_scores,
+                          det_valid, seeds=None, frame_offsets=None):
+        """C clips (host arrays, ``prepare_lanes``' arguments) with their
+        frame axis split over ``devices``: the clip padded with invalid
+        frames to a multiple of len(devices) (the recovery budget stays at
+        the real frame count), stage 1 on each device's chunk of frames
+        plus the next chunk's first (its last pair), stage 2 on each
+        chunk's detections, every device dispatched before any is joined;
+        the flows and the pose pass are then gathered on the first device,
+        where the recovery scan, its budgeted pose pass and the id scan run
+        (``_track``). Returns ``run_prepared_lanes``' device result, sliced
+        back to the real frames, on the first device. Runs eagerly."""
+        n = len(devices)
+        f = np.shape(det_scores)[1]
+        padded = [pad_to_multiple(np.asarray(a), n, axis=1)[0]
+                  for a in (frames, det_boxes, det_scores, det_valid)]
+        fv = pad_to_multiple(np.ones(np.shape(det_scores)[:2], bool), n,
+                             axis=1)[0]
+        host = self.host_lanes(*padded, fv, frame_offsets)
+        fp = fv.shape[1]
+        chunk = fp // n
+        main = self.replica(devices[0])
+        flows, poses = [], []
+        for j, dev in enumerate(devices):
+            rep = self.replica(dev)
+            lo, hi = j * chunk, (j + 1) * chunk
+            # the chunk's frames and the next chunk's first, if any
+            part = rep.put_lanes((host[0][:, lo:hi + 1],
+                                  *(a[:, lo:hi] for a in host[1:])))
+            flows.append(rep._flow_pass(part[0]))
+            poses.append(rep._pose_pass(part[0][:, :chunk], *part[1:5]))
+        d0 = main.device
+
+        def join(parts):
+            return torch.cat([t.to(d0) for t in parts], 1)
+
+        frames_all, _, _, _, _, boxes_all, fv_all = main.put_lanes(host)
+        c = frames_all.shape[0]
+        empty = main.empty_seed()
+        seeds = [empty if s is None else seed_to(s, d0)
+                 for s in (seeds or [None] * c)]
+        seed = [torch.stack(leaves) for leaves in zip(*seeds)]
+        real = (None if fp == f
+                else real_frames_scalar(f, fp, d0))
+        out = main._track(frames_all.reshape(c * fp, *frames_all.shape[2:]),
+                          join(flows), *(join(x) for x in zip(*poses)),
+                          boxes_all, fv_all, *seed, real_frames=real)
+        return (*(x[:, :f] for x in out[:5]), out[5])
 
     def track_clip(self, frames: np.ndarray, det_boxes: np.ndarray,
-                   det_scores: np.ndarray, det_valid: np.ndarray, seed=None,
+                   det_scores: np.ndarray, det_valid: np.ndarray,
+                   frame_sharding: Optional[NamedSharding] = None, seed=None,
                    frame_offset: int = 0, return_seed: bool = False):
         """frames (F, H, W, 3) uint8 or float32; det_boxes (F, P, 4) xywh
         (padded); det_scores, det_valid (F, P). Returns numpy arrays over
         T = P + max_recovered slots: joints (F, T, K, 2), maxvals (F, T, K),
         scores (F, T), ids (F, T) (-1 = invalid), valid (F, T). With
         ``return_seed``, also the device seed for the next clip, whose
-        ``frame_offset`` is its first global frame index."""
-        args = self.prepare(frames, det_boxes, det_scores, det_valid,
-                            frame_offset=frame_offset)
-        device_out = self.run_prepared(args, seed=seed)
+        ``frame_offset`` is its first global frame index.
+
+        ``frame_sharding`` (``parallel.batch_sharding(mesh)``) splits this
+        one clip's frames over the mesh (``run_frame_sharded``); the result
+        is the unsharded one's, the seed on the mesh's first device."""
+        if frame_sharding is not None:
+            # one lane whose frame axis (axis 1) the mesh axis splits
+            (_, device_out), = self.run_sharded_lanes(
+                NamedSharding(frame_sharding.mesh,
+                              (None, frame_sharding.spec[0])),
+                *(np.asarray(a)[None] for a in (
+                    frames, det_boxes, det_scores, det_valid)),
+                seeds=[seed], frame_offsets=[frame_offset])
+            device_out = (*(x[0] for x in device_out[:5]),
+                          tuple(s[0] for s in device_out[5]))
+        else:
+            args = self.prepare(frames, det_boxes, det_scores, det_valid,
+                                frame_offset=frame_offset)
+            device_out = self.run_prepared(args, seed=seed)
         out = self.to_host(device_out)
         return (out, device_out[5]) if return_seed else out
+
+
+def slot_device(mesh, where: dict) -> torch.device:
+    """The device of the mesh slot at the given axis indices (0 on the
+    axes not given)."""
+    return mesh.devices[tuple(where.get(a, 0) for a in mesh.axis_names)]
+
+
+def seed_to(seed, device):
+    """A lane's seed (or None) with its leaves on ``device``: a copy
+    between devices where it lives on another (no host round trip)."""
+    return None if seed is None else tuple(leaf.to(device) for leaf in seed)
 
 
 def pad_detections(per_frame_boxes, per_frame_scores, max_persons: int):

@@ -79,7 +79,10 @@ def test_port_imports_no_jax():
                 "flowtrack_tpu_torch.tools.track",
                 "flowtrack_tpu_torch.tools.track_video",
                 "flowtrack_tpu_torch.tools.demo",
-                "flowtrack_tpu_torch.tools.eval_flow"):
+                "flowtrack_tpu_torch.tools.eval_flow",
+                "flowtrack_tpu_torch.parallel",
+                "flowtrack_tpu_torch.parallel.mesh",
+                "flowtrack_tpu_torch.parallel.distributed"):
         assert mod in PORT_MODULES, mod
     assert proc.stdout.split()[0] == str(len(PORT_MODULES))
 
@@ -105,7 +108,7 @@ def test_port_and_smoke_import_nothing_of_the_reference():
 
 
 @pytest.mark.parametrize("section", ["model", "flow", "train", "test", "track",
-                                     "data"])
+                                     "data", "mesh"])
 def test_port_config_sections_match_reference(section):
     """Each section the port keeps has the reference's field names, types
     and defaults, in the same order."""
@@ -117,7 +120,8 @@ def test_port_config_sections_match_reference(section):
     assert port_cls.__name__ == ref_cls.__name__
     assert spec(port_cls) == spec(ref_cls)
     assert [f.name for f in dataclasses.fields(port_config.Config)] == [
-        "name", "model", "flow", "train", "test", "track", "data"]
+        f.name for f in dataclasses.fields(ref_config.Config)] == [
+        "name", "model", "flow", "train", "test", "track", "data", "mesh"]
     for name in ("COCO_NUM_JOINTS", "COCO_FLIP_PAIRS", "COCO_SIGMAS",
                  "MPII_NUM_JOINTS", "MPII_FLIP_PAIRS", "PIXEL_STD", "IMAGENET_MEAN",
                  "IMAGENET_STD"):
@@ -127,11 +131,11 @@ def test_port_config_sections_match_reference(section):
 @pytest.mark.parametrize("name", sorted(ref_config.PRESETS))
 def test_port_presets_match_reference(name):
     """Every reference preset is in the port, equal field for field in each
-    section the port keeps (all but the mesh); an unknown name raises
-    KeyError."""
+    section, the mesh's included; an unknown name raises KeyError."""
     got, want = port_config.get_config(name), ref_config.get_config(name)
     assert got.name == want.name
-    for section in ("model", "flow", "train", "test", "track", "data"):
+    for section in ("model", "flow", "train", "test", "track", "data",
+                    "mesh"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section)), section
     assert sorted(port_config.PRESETS) == sorted(ref_config.PRESETS)
@@ -141,22 +145,43 @@ def test_port_presets_match_reference(name):
 
 def test_port_overrides_match_reference():
     """The CLIs' dotted overrides: the same coercions (bool, int, float,
-    tuple, str) give the same sections; a key the port lacks raises."""
+    tuple, str) give the same sections, the mesh's included; a key that
+    neither has raises in both."""
     opts = ["test.flip_test=false", "model.num_layers=18",
             "model.image_size=64,48", "track.box_expand=0.2",
             "flow.variant=flownet_c", "TEST.IN_VIS_THRE=0.3",
-            "data.root=/data/x", "track.clip_recover=1"]
+            "data.root=/data/x", "track.clip_recover=1",
+            "mesh.num_devices=2", "mesh.data_axis=batch"]
     got = port_config.apply_overrides(port_config.get_config(
         "flowtrack_posetrack"), opts)
     want = ref_config.apply_overrides(ref_config.get_config(
         "flowtrack_posetrack"), opts)
-    for section in ("model", "flow", "train", "test", "track", "data"):
+    for section in ("model", "flow", "train", "test", "track", "data",
+                    "mesh"):
         assert dataclasses.asdict(getattr(got, section)) == \
             dataclasses.asdict(getattr(want, section)), section
     assert got.model.image_size == (64, 48) and not got.test.flip_test
-    with pytest.raises(AttributeError):
-        port_config.apply_overrides(port_config.Config(),
-                                    ["mesh.num_devices=2"])
+    assert got.mesh == port_config.MeshConfig("batch", 2)
+    for apply, cfg in ((port_config.apply_overrides, port_config.Config()),
+                       (ref_config.apply_overrides, ref_config.Config())):
+        with pytest.raises(AttributeError):
+            apply(cfg, ["mesh.num_chips=2"])
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "experiments").glob("*.yaml")))
+def test_port_load_yaml_matches_reference(path):
+    """Each experiment file gives the reference's config through the
+    port's own YAML reader (no PyYAML on the card's machine), also by
+    get_config; the reader gives PyYAML's mapping."""
+    import yaml
+
+    full = REPO / path
+    got = port_config.get_config(str(full))
+    want = ref_config.load_yaml(str(full))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    text = full.read_text()
+    assert port_config.parse_yaml(text) == yaml.safe_load(text)
 
 
 def test_port_ships_with_the_package_config():
