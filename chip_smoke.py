@@ -152,6 +152,25 @@ evaluators behind them. Phases that each print one or more lines:
      FlowNet2), FlowNetC's conv1 gradient with
      the cost volume detached, and K2 and the warp alone against central
      differences, with the plain backward's time beside the forward's;
+ 11b. compiled: the reference's jitted programs outside the clip as CUDA
+     graphs (``flowtrack_tpu_torch/utils/graphs.py``), each against its
+     eager program run on the same padded batch (``eager_programs``):
+     ``FlowTracker`` over ``PosePredictor`` and ``FlowPredictor`` with
+     slice 1's nets at coco_res50_256x192's bucket of 32, 16 frames of
+     384x640, 8 persons a frame and one frame of 33 detections (a second
+     bucket), tracks bit for bit, ms a frame in turns, each route traced
+     (idle share, K1 and K2 by name), the graphs by bucket with capture ms
+     and pool MiB, the padded rows' share of the pose call's device time;
+     the train steps as the CLIs make them (``make_jit_train_step``: R50
+     256x192 b32 bf16 Adam; ``train_flow.flow_step``: FlowNetC and
+     FlowNet2 at 320x448 b8), 6 steps from the same weights and batches
+     with the schedule's milestone at step 3, losses, parameters and
+     buffers within REMAT_REPEAT_FACTOR times the eager runs' own
+     difference, the device rate the schedule's, a run saved at step 3 and
+     resumed into a fresh state equal to the uninterrupted one (R50,
+     FlowNetC), ms a step in turns, samples/s, K2 and the warp by name in
+     the replays' trace; ``run_validation`` and ``train_flow.validate``
+     graph against eager bit for bit;
  12. train_cli: the train CLIs through their own ``main``, the launch
      counts read around each run: ``train_flow`` with FlowNetC at 320x448,
      batch 8, bf16, 2 epochs over a synthetic FlyingChairs-style corpus of
@@ -203,6 +222,7 @@ file) and no network; it imports neither jax nor the reference package
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -1086,13 +1106,20 @@ def zero_counts(run):
 def counted(tag, run, check=None) -> tuple:
     """``run()``, every launch count set to 0 just before, under
     torch.profiler (``profile_run``): (its result, seconds, launches). A
-    replayed clip graph launches its kernels without calling their
-    wrappers, so each kernel's launches are its device functions counted
-    by name in this run's trace; the wrappers' counts, read just after, may
-    not exceed them (a wrapper counts only where it launches: its eager
-    calls, and a capture's, whose graph then replays). ``check(launches)``
-    holds the counts to what the run must launch; a trace that fails
-    either is taken again once, with the counts at 0 again."""
+    replayed graph launches its kernels without calling their wrappers, so
+    each kernel's launches are its device functions counted by name in
+    this run's trace; the wrappers' counts, read just after, may not
+    exceed them (a wrapper counts only where it launches: its eager calls,
+    and a capture's, whose graph then replays). ``check(launches)`` holds
+    the counts to what the run must launch; a trace that fails either is
+    taken again once, with the counts at 0 again."""
+    out, wall_ms, device = traced_run(tag, run, check)
+    return out, wall_ms / 1e3, kernel_events(device)
+
+
+def traced_run(tag, run, check=None) -> tuple:
+    """``counted``'s run and checks: (run's result, wall ms, device
+    events)."""
     counters = kernel_counters()
     result = {}
 
@@ -1109,7 +1136,7 @@ def counted(tag, run, check=None) -> tuple:
             check(launches)
 
     _, wall_ms, device = profile_run(tag, counted_run, holds)
-    return result["out"], wall_ms / 1e3, kernel_events(device)
+    return result["out"], wall_ms, device
 
 
 def eager_run(tracker, args, seeds=None):
@@ -1974,19 +2001,25 @@ def phase_serving(card, dev=None):
                      device=dev)
     video, boxes, scores = (x[:FLOWTRACKER_FRAMES] for x in streams["s1"])
     dets = list(zip(boxes, scores))
-    ft.track_sequence(video[:2], dets[:2])
-    for fn in counters.values():
-        fn.launches = 0
+    # the first run captures the programs' graphs of every bucket it meets
+    ft.track_sequence(video, dets)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tracks = ft.track_sequence(video, dets)
     torch.cuda.synchronize()
     ms_per_frame = (time.perf_counter() - t0) * 1e3 / FLOWTRACKER_FRAMES
-    ft_launches = {name: fn.launches for name, fn in counters.items()}
-    require(ft_launches["crop_resize_normalize"] == FLOWTRACKER_FRAMES
-            and ft_launches["correlation"] == FLOWTRACKER_FRAMES - 1,
-            f"FlowTracker: one crop launch a frame and one correlation "
-            f"launch a pair, got {ft_launches}")
+
+    def once_a_frame(launches):
+        require(launches["crop_resize_normalize"] == FLOWTRACKER_FRAMES
+                and launches["correlation"] == FLOWTRACKER_FRAMES - 1,
+                f"FlowTracker: one crop launch a frame and one correlation "
+                f"launch a pair, got {launches}")
+
+    # a replay launches the kernels without their wrappers: the counts come
+    # from the run's own trace
+    _, _, ft_launches = counted(
+        "serving_flowtracker", lambda: ft.track_sequence(video, dets),
+        once_a_frame)
     SUMMARY["flowtracker_ms_per_frame"] = round(ms_per_frame, 2)
     log("serving", check="FlowTracker", frames=FLOWTRACKER_FRAMES,
         planted_ids=ft_ids, cpu_equal=True, ms_per_frame=ms_per_frame,
@@ -2805,13 +2838,14 @@ def write_npz_weights(path, model, convert) -> str:
     return path
 
 
-def run_cli(main, argv, counters, total, traced=False):
+def run_cli(main, argv, counters, total, traced=False, check=None):
     """One CLI run with every launch count set to 0 just before and read
     just after (and added to ``total``); its stdout (its json line, its
     log) kept out of the smoke's. ``traced``: the counts come from the
-    run's device trace (``counted``), as a CLI that tracks clips replays
-    their graphs; else from the wrappers. -> (main's return value,
-    launches, seconds)."""
+    run's device trace (``counted``, held to ``check(launches)``), as a
+    CLI whose programs replay graphs launches kernels without their
+    wrappers; else from the wrappers. -> (main's return value, launches,
+    seconds)."""
     import contextlib
     import io
 
@@ -2820,7 +2854,7 @@ def run_cli(main, argv, counters, total, traced=False):
             return main(argv)
 
     if traced:
-        out, seconds, launches = counted(argv[0], run)
+        out, seconds, launches = counted(argv[0], run, check)
     else:
         t0 = time.perf_counter()
         out = zero_counts(run)()
@@ -2973,8 +3007,9 @@ def phase_eval(card, dev=None):
     card_f = f"'{card}'"
     counters = kernel_counters()
     total = dict.fromkeys(counters, 0)
-    # the CLIs that track clips replay their graphs on the card: their
-    # launches come from the device trace
+    # the CLIs that track (clips, or frame by frame), pose a frame or take
+    # flow replay their graphs on the card: their launches come from the
+    # device trace
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
     pt_opts = ["flow.variant=flownet_c", "track.pose_score_thre=0.0"]
@@ -3030,7 +3065,7 @@ def phase_eval(card, dev=None):
                     "--flow-weights", flownet_c, "--out", str(out_dir),
                     "--engine", engine, "--device", dev.type, *pt_opts,
                     f"data.root={root}", "data.test_set=val"], counters,
-                    total, traced=on_card and engine == "clip")
+                    total, traced=on_card)
                 require(launches["crop_resize_normalize"] > 0
                         and launches["correlation"] > 0,
                         f"track --engine {engine}: K1 or K2 never launched: "
@@ -3111,7 +3146,7 @@ def phase_eval(card, dev=None):
             "--weights", pose50, "--image", str(Path(videos[0]) /
                                                  "000000.png"),
             "--boxes", str(boxes), "--out", str(tmp / "demo.png"),
-            "--device", dev.type], counters, total)
+            "--device", dev.type], counters, total, traced=on_card)
         require(launches["crop_resize_normalize"] > 0,
                 f"demo: K1 never launched: {launches}")
         require(out["persons"] == EVAL_PERSONS
@@ -3133,7 +3168,7 @@ def phase_eval(card, dev=None):
         out, launches, seconds = run_cli(eval_flow.main, [
             "--cfg", "flownet_c", "--weights", flownet_c,
             "--frames", str(frames_dir), "--gt-flow", str(flo_dir),
-            "--device", dev.type], counters, total)
+            "--device", dev.type], counters, total, traced=on_card)
         require(launches["correlation"] > 0,
                 f"eval_flow: K2 never launched: {launches}")
         require(out["n_frames"] == EVAL_FLOW_PAIRS
@@ -3349,6 +3384,579 @@ in FlowNet2); FlowNetC's conv1 gradient
     return launches
 
 
+# -- the compiled phase: the reference's jitted programs outside the clip ---
+
+# the per-frame engine at coco_res50_256x192's bucket of 32 persons:
+# slice 1's nets, 8 persons a frame, and at frame COMPILED_CROWD_AT one of
+# COMPILED_CROWD detections (a second bucket); the train steps:
+# COMPILED_STEPS a route, the schedule's milestone at step
+# COMPILED_MILESTONE (lr_steps (1,) at that many steps an epoch), a run
+# saved there and resumed; COMPILED_TIMED steps a timed turn
+COMPILED_BUCKET, COMPILED_CROWD, COMPILED_CROWD_AT = 32, 33, 8
+COMPILED_STEPS, COMPILED_MILESTONE, COMPILED_TIMED = 6, 3, 3
+COMPILED_VAL_BATCH = 4
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Every ``utils/graphs.GraphCache`` runs its program eagerly on the
+    card, under ``torch.cuda.set_sync_debug_mode("error")``: the graphs'
+    plain versions (the per-frame engine's, the validation steps'), the
+    eager route of the ``[compiled]`` phase, which runs after the graph
+    route made the ops' cached constants; a host sync inside a program
+    raises, one between programs (a fetch) does not."""
+    from flowtrack_tpu_torch.utils.graphs import GraphCache
+
+    run = GraphCache.run
+    GraphCache.run = lambda self, key, fn, args, *a, **k: no_sync(
+        lambda: fn(*args))
+    try:
+        yield
+    finally:
+        GraphCache.run = run
+
+
+def no_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def graph_caches(**caches) -> dict:
+    """Each named (GraphCache, label of a key): its graphs by label, their
+    capture ms, the shared pool's MiB."""
+    return {name: {"graphs": [label(k) for k in c],
+                   "capture_ms": [round(g.capture_ms, 1)
+                                  for g in c.values()],
+                   "pool_mib": round(sum(g.pool_bytes for g in c.values())
+                                     / 2 ** 20, 1)}
+            for name, (c, label) in caches.items()}
+
+
+def same_tracks(what, got, want) -> int:
+    """FlowTracker outputs bit for bit, frame by frame: ids, joints,
+    maxvals, scores. Returns the tracks compared."""
+    require(len(got) == len(want), f"{what}: {len(got)} != {len(want)}")
+    n = 0
+    for t, (g, w) in enumerate(zip(got, want)):
+        require([x.track_id for x in g] == [x.track_id for x in w],
+                f"{what}: frame {t}'s ids differ")
+        for a, b in zip(g, w):
+            require(np.array_equal(a.joints, b.joints)
+                    and np.array_equal(a.maxvals, b.maxvals)
+                    and a.score == b.score,
+                    f"{what}: frame {t} track {a.track_id} differs")
+            n += 1
+    require(n > 0, f"{what}: no track to compare")
+    return n
+
+
+def traced(tag, run, check=None) -> dict:
+    """``run()`` as ``counted`` runs it: wall ms, device busy ms, idle
+    share and the kernels by name."""
+    _, wall_ms, device = traced_run(tag, run, check)
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    return {"wall_ms": round(wall_ms, 2), "busy_ms": round(busy_ms, 2),
+            "idle_share": round(1 - busy_ms / wall_ms, 4),
+            "launches": kernel_events(device)}
+
+
+def compiled_frames(card_f, dev) -> dict:
+    """FlowTracker over PosePredictor and FlowPredictor with slice 1's nets
+    at coco_res50_256x192's bucket of 32: FRAMES frames of 384x640, 8
+    persons a frame and one frame of 33 detections. The graph route (every
+    program a CUDA graph per bucket, captured in the first run) against the
+    eager route (the same programs run eagerly on the same padded batches,
+    ``eager_programs``): tracks equal bit for bit; ms a frame in turns;
+    each route traced (K1 once a frame, K2 once a pair, by name); the
+    graphs by bucket; the padded rows' share of the pose program's device
+    time at 8 persons in a bucket of 32. Returns the graph route's
+    launches."""
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.pipeline import FlowPredictor, PosePredictor
+    from flowtrack_tpu_torch.tracking import FlowTracker
+
+    t_part = time.perf_counter()
+    base = slice_config()
+    cfg = replace(base, track=replace(base.track, max_persons=COMPILED_BUCKET,
+                                      pose_score_thre=0.0))
+    gen = torch.Generator().manual_seed(SEED)
+    pose_net = get_pose_net(cfg.model, dev, gen)
+    flow_net = get_flow_net(cfg.flow, dev, gen)
+    rng = np.random.default_rng(SEED + 13)
+    video = rng.integers(0, 256, (FRAMES, FRAME_H, FRAME_W, 3), np.uint8)
+    boxes, scores, _ = video_detections(rng, FRAMES, PERSONS, FRAME_H,
+                                        FRAME_W, PLANTED_VEL)
+    dets = list(zip(boxes, scores))
+    # the crowd on a grid of 3 rows, apart, so that the suppression keeps
+    # every one
+    cols = -(-COMPILED_CROWD // 3)
+    cw, ch = FRAME_W / cols, FRAME_H / 3
+    crowd = np.array([[(i % cols + 0.1) * cw, (i // cols + 0.1) * ch,
+                       0.8 * cw, 0.8 * ch] for i in range(COMPILED_CROWD)],
+                     np.float32)
+    dets[COMPILED_CROWD_AT] = (crowd, rng.uniform(0.6, 0.95, COMPILED_CROWD)
+                               .astype(np.float32))
+    ft = {route: FlowTracker(cfg, PosePredictor(cfg, pose_net, device=dev),
+                             FlowPredictor(cfg, flow_net, device=dev),
+                             device=dev)
+          for route in ("graph", "eager")}
+
+    def run(route):
+        with (eager_programs() if route == "eager"
+              else contextlib.nullcontext()):
+            out = ft[route].track_sequence(video, dets)
+        torch.cuda.synchronize()
+        return out
+
+    stage_s = {"set_up": time.perf_counter() - t_part}
+    t0 = time.perf_counter()
+    got = run("graph")      # captures every bucket
+    stage_s["graph_captures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = run("eager")
+    stage_s["eager_first"] = time.perf_counter() - t0
+    compared = same_tracks("compiled FlowTracker graph vs eager", got, want)
+    ms = {"eager": [], "graph": []}
+    for route in ("eager", "graph", "graph", "eager"):
+        t0 = time.perf_counter()
+        out = run(route)
+        ms[route].append((time.perf_counter() - t0) * 1e3 / FRAMES)
+        same_tracks(f"compiled FlowTracker {route} turn", out, want)
+
+    def once_a_frame(launches):
+        require(launches["crop_resize_normalize"] == FRAMES
+                and launches["correlation"] == FRAMES - 1,
+                f"FlowTracker: one crop launch a frame and one correlation "
+                f"launch a pair, got {launches}")
+
+    t0 = time.perf_counter()
+    routes = {route: traced(f"compiled_frames_{route}",
+                            lambda route=route: run(route), once_a_frame)
+              for route in ("graph", "eager")}
+    stage_s["traces"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pose, flow, trk = (ft["graph"].pose_fn, ft["graph"].flow_fn,
+                       ft["graph"])
+    buckets = sorted({k[-1] for k in pose.graphs})
+    require(len(buckets) >= 2 and COMPILED_BUCKET in buckets,
+            f"PosePredictor captured the buckets {buckets}")
+    # the padded rows' share of the pose program's device time: 8 persons
+    # in a bucket of 32 against a bucket of 8, each a replayed graph
+    p8 = PosePredictor(replace(cfg, track=replace(cfg.track,
+                                                  max_persons=PERSONS)),
+                       pose_net, device=dev)
+    frame, (b8, s8) = video[0], dets[0]
+    device_ms = {}
+    for name, pred in (("bucket_32", pose), ("bucket_8", p8)):
+        _, by_name = device_events(lambda pred=pred: pred(frame, b8, s8))
+        device_ms[name] = round(sum(by_name.values()), 4)
+    padded_share = 1 - device_ms["bucket_8"] / device_ms["bucket_32"]
+    stage_s["padded_share"] = time.perf_counter() - t0
+    fields = {"frames": FRAMES, "persons": PERSONS,
+              "crowd_frame": (COMPILED_CROWD_AT, COMPILED_CROWD),
+              "bucket": COMPILED_BUCKET, "bitwise_tracks": compared,
+              "live_tracks": [len(t) for t in got],
+              "eager_ms_per_frame": [round(x, 2) for x in ms["eager"]],
+              "graph_ms_per_frame": [round(x, 2) for x in ms["graph"]],
+              "order": "eager,graph,graph,eager", **{
+                  f"{r}_wall_busy_idle": (f["wall_ms"], f["busy_ms"],
+                                          f["idle_share"])
+                  for r, f in routes.items()},
+              "launches": routes["graph"]["launches"],
+              "graphs": graph_caches(
+                  pose=(pose.graphs, lambda k: k[-1]),
+                  flow=(flow.graphs, lambda k: k[-1]),
+                  tracker=(trk.graphs, lambda k: (
+                      k[0], k[1] if isinstance(k[1], int) else k[1][0]))),
+              "pose_device_ms": device_ms,
+              "padded_rows_share_of_pose_device_ms": round(padded_share, 4),
+              "seconds": round(time.perf_counter() - t_part, 1),
+              "stage_s": {k: round(v, 1) for k, v in stage_s.items()}}
+    log("compiled", part="per_frame", **fields, card=card_f)
+    SUMMARY["compiled_frame_ms_graph_eager"] = (fields["graph_ms_per_frame"],
+                                                fields["eager_ms_per_frame"])
+    SUMMARY["compiled_frame_idle_graph_eager"] = (
+        routes["graph"]["idle_share"], routes["eager"]["idle_share"])
+    SUMMARY["compiled_padded_rows_share"] = round(padded_share, 4)
+    return routes["graph"]["launches"]
+
+
+def weights_of(state) -> dict:
+    """Copies of the model's parameters and buffers, on its device."""
+    return {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+
+
+def steps_apart(a, b, base) -> dict:
+    """How far two train runs (state, losses, weights) ended apart: the
+    losses' largest difference relative to ``b``'s, step by step, and the
+    floating weights' (parameters and running statistics) distance as a
+    share of what ``b`` moved them from ``base`` (norms over every
+    tensor); the integer buffers (batch counts) must be equal."""
+    la, lb = np.asarray(a[1]), np.asarray(b[1])
+    apart = moved = 0.0
+    for k, w in b[2].items():
+        if not w.is_floating_point():
+            require(torch.equal(a[2][k], w), f"{k}: {a[2][k]} != {w}")
+            continue
+        apart += float(((a[2][k].double() - w.double()) ** 2).sum())
+        moved += float(((w.double() - base[k].double()) ** 2).sum())
+    return {"losses": float(np.max(np.abs(la - lb) / np.abs(lb))),
+            "weights": (apart / moved) ** 0.5}
+
+
+def host_saved(path) -> None:
+    """Rewrite the checkpoint at ``path`` as a run on the CPU (or a tree
+    whose rate was a float) saves it: every tensor on the host, the rate a
+    float, Adam's capturable off."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for group in ckpt["optimizer"]["param_groups"]:
+        group["lr"] = float(group["lr"])
+        group["capturable"] = False
+    torch.save(ckpt, path)
+
+
+def compiled_train_net(tag, card_f, make_model, base, cfg, batches,
+                       graph_step, eager_step, tmp, kernels=()) -> dict:
+    """One net's train step, graphed (``graph_step()`` makes a step as the
+    CLIs make theirs) against eager (``eager_step``), from the weights
+    ``base`` (loaded into ``make_model()``) over the same COMPILED_STEPS
+    batches, the schedule's milestone at step COMPILED_MILESTONE. The
+    losses and the weights (``steps_apart``) each within
+    REMAT_REPEAT_FACTOR times the most that eager runs differ by in it (0:
+    bit for bit; two runs, four where the first two differ); the device
+    rate the schedule's after the milestone. A graph whose rate stays at
+    the first step's (a rate frozen into the graph) must fall outside the
+    bounds. A graphed run saved before the milestone
+    (``CheckpointManager``), its file rewritten as the CPU saves one
+    (``host_saved``: a float rate, which ``make_optimizer``'s
+    ``device_rate`` must turn back into a device tensor), restored into a
+    fresh state and stepped on across the milestone by a new step, within
+    the same bounds of the uninterrupted run. Before these two, ms a step
+    in turns, and COMPILED_TIMED replayed steps traced (``kernels``: (name,
+    launches a step) by name). Returns their launches."""
+    from flowtrack_tpu_torch.engine.checkpoint import CheckpointManager
+    from flowtrack_tpu_torch.engine.train import create_train_state
+
+    t_part = time.perf_counter()
+    cfg = replace(cfg, train=replace(cfg.train, lr_steps=(1,)))
+
+    def fresh():
+        model = make_model()
+        model.load_state_dict(base)
+        return create_train_state(model, cfg, COMPILED_MILESTONE)
+
+    def steps(state, step, first, last):
+        losses = []
+        for i, b in enumerate(batches[first:last], first):
+            if step is eager_step and i > 0:
+                # past its warm-up the eager step syncs with nothing
+                state, m = no_sync(lambda: step(state, b))
+            else:
+                state, m = step(state, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return state, [float(x) for x in losses]
+
+    def run(step):
+        state, losses = steps(fresh(), step, 0, COMPILED_STEPS)
+        require(state.step == COMPILED_STEPS, f"{tag}: step {state.step}")
+        return state, losses, weights_of(state)
+
+    def apart(a, b):
+        return steps_apart(a, b, base)
+
+    graph_fn = graph_step()
+    runs = {"eager": run(eager_step)}
+    # the eager route's own spread: one repeat, and where it is not bit for
+    # bit (FlowNet2's warp backward adds with atomics) two more, since one
+    # sample of the spread may fall several times under another
+    repeats = [run(eager_step)]
+    if max(apart(repeats[0], runs["eager"]).values()) > 0:
+        repeats.append(run(eager_step))
+        repeats.append(run(eager_step))
+    spread = [runs["eager"]] + repeats
+    pairs = [apart(a, b) for i, a in enumerate(spread) for b in spread[i + 1:]]
+    repeat = {m: max(d[m] for d in pairs) for m in pairs[0]}
+    del repeats, spread
+    runs["graph"] = run(graph_fn)
+    bound = {m: REMAT_REPEAT_FACTOR * v for m, v in repeat.items()}
+    diff = apart(runs["graph"], runs["eager"])
+    require(all(diff[m] <= bound[m] for m in bound),
+            f"{tag}: graph against eager {diff} > {bound} "
+            f"({REMAT_REPEAT_FACTOR}x the eager repeats' {repeat})")
+    state = runs["graph"][0]
+    lr = state.optimizer.param_groups[0]["lr"]
+    require(isinstance(lr, torch.Tensor) and float(lr) == np.float32(
+        state.schedule(COMPILED_STEPS - 1)) and float(lr) < cfg.train.lr,
+        f"{tag}: the device rate {lr} after the milestone")
+    routes = {"eager": eager_step, "graph": graph_fn}
+
+    def timed(name):
+        state = runs[name][0]
+        for _ in range(COMPILED_TIMED):
+            state, _ = routes[name](state, batches[-1])
+
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed(name)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / COMPILED_TIMED)
+
+    def launched(launches):
+        for k, per_step in kernels:
+            require(launches[k] == per_step * COMPILED_TIMED,
+                    f"{tag}: {k} launched {launches[k]} times in "
+                    f"{COMPILED_TIMED} steps, not {per_step} a step")
+
+    # traced before the stale-rate and resume graphs are captured and
+    # dropped: a traced replay of the FlowNet2 graph after two more of its
+    # graphs came and went crashed the process (a segmentation fault in
+    # CUDAGraph.replay on an H100, with and without the host's ops traced)
+    trace = traced(f"compiled_train_{tag}", lambda: timed("graph"),
+                   launched)
+    step = graph_step()
+
+    def stale_rate(state, b):
+        out = step(state, b)
+        state.set_rate = lambda: None   # the first step's rate kept
+        return out
+
+    stale = apart(run(stale_rate), runs["eager"])
+    require(any(stale[m] > bound[m] for m in bound),
+            f"{tag}: a graph whose rate stays at the first step's reads "
+            f"{stale}, within the bounds {bound}")
+    step = graph_step()
+    saved_at = COMPILED_MILESTONE - 1
+    part, losses = steps(fresh(), step, 0, saved_at)
+    mgr = CheckpointManager(str(tmp / f"compiled_{tag}"))
+    mgr.save(0, part)
+    host_saved(mgr._path(0))
+    del part
+    step = graph_step()
+    state, _ = mgr.restore(fresh())
+    lr = state.optimizer.param_groups[0]["lr"]
+    require(state.step == saved_at and isinstance(lr, torch.Tensor)
+            and lr.device == next(state.model.parameters()).device,
+            f"{tag}: resumed at {state.step}, rate {lr}")
+    state, more = steps(state, step, saved_at, COMPILED_STEPS)
+    resumed = apart((state, losses + more, weights_of(state)),
+                    runs["graph"])
+    require(all(resumed[m] <= bound[m] for m in bound),
+            f"{tag}: the resumed run against the uninterrupted one "
+            f"{resumed} > {bound}")
+    del state, step
+    n = batches[0][next(iter(batches[0]))].shape[0]
+    fields = {"batch": n, "steps": COMPILED_STEPS,
+              "milestone_step": COMPILED_MILESTONE,
+              "losses": [round(x, 6) for x in runs["graph"][1]],
+              "eager_repeat_apart": repeat, "bound": bound,
+              "graph_vs_eager_apart": diff,
+              "stale_rate_graph_vs_eager_apart": stale,
+              "saved_at_step": saved_at,
+              "resumed_vs_uninterrupted_apart": resumed,
+              "eager_ms_per_step": [round(x, 2) for x in ms["eager"]],
+              "graph_ms_per_step": [round(x, 2) for x in ms["graph"]],
+              "order": "eager,graph,graph,eager",
+              "graph_samples_per_s": round(n * 1e3 / min(ms["graph"]), 1),
+              "eager_samples_per_s": round(n * 1e3 / min(ms["eager"]), 1),
+              "graph_traced_wall_busy_idle": (trace["wall_ms"],
+                                              trace["busy_ms"],
+                                              trace["idle_share"]),
+              "launches_in_replays": trace["launches"],
+              "graph": graph_caches(step=(graph_fn.graphs, lambda k: "x".join(
+                  map(str, k[0][1]))))["step"],
+              "seconds": round(time.perf_counter() - t_part, 1)}
+    log("compiled", part="train", net=tag, **fields, card=card_f)
+    SUMMARY.setdefault("compiled_train_ms_graph_eager", {})[tag] = (
+        fields["graph_ms_per_step"], fields["eager_ms_per_step"])
+    SUMMARY.setdefault("compiled_train_idle_graph", {})[tag] = \
+        trace["idle_share"]
+    return trace["launches"]
+
+
+def compiled_train(card_f, dev, tmp) -> dict:
+    """The train steps as the CLIs make them: ``make_jit_train_step`` for
+    R50 256x192 b32 bf16 Adam, ``train_flow.flow_step`` for FlowNetC and
+    FlowNet2 at 320x448 b8 (K2; K2 and the warp), each against its eager
+    step (``compiled_train_net``). Returns the replays' launches."""
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.engine.flow_train import flow_train_step
+    from flowtrack_tpu_torch.engine.train import (make_jit_train_step,
+                                                  train_step)
+    from flowtrack_tpu_torch.models import flownet
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tools import train_flow
+
+    rng = np.random.default_rng(SEED + 17)
+    gen = torch.Generator().manual_seed(SEED)
+    total = dict.fromkeys(kernel_counters(), 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    cfg = get_config("coco_res50_256x192")
+    bs = cfg.train.batch_size
+    hh, hw = cfg.model.heatmap_size
+    batches = [{"input": torch.as_tensor(rng.normal(
+                    size=(bs, *cfg.model.image_size, 3)).astype(np.float32),
+                    device=dev),
+                "target": torch.as_tensor(rng.uniform(
+                    0, 1, (bs, hh, hw, 17)).astype(np.float32), device=dev),
+                "target_weight": torch.as_tensor((rng.uniform(
+                    0, 1, (bs, 17)) > 0.2).astype(np.float32), device=dev)}
+               for _ in range(COMPILED_STEPS)]
+    add(compiled_train_net(
+        "pose_resnet50", card_f, lambda: get_pose_net(cfg.model, dev),
+        get_pose_net(cfg.model, dev, gen).state_dict(), cfg, batches,
+        make_jit_train_step, train_step, tmp))
+    del batches
+    n, (h, w) = FLOW_TRAIN_BATCH, FLOW_TRAIN_HW
+    flow_batches = []
+    for _ in range(COMPILED_STEPS):
+        frames = torch.as_tensor(rng.integers(0, 256, (2, n, h, w, 3),
+                                              np.uint8), device=dev).float()
+        flow_batches.append({"im1": frames[0], "im2": frames[1],
+                             "flow": smooth_flow(rng, n, h, w, 8.0, dev)
+                             .permute(0, 2, 3, 1).contiguous()})
+    fcfg_c = get_config("flownet_c")
+    for tag, cfg, kernels in (
+            ("flownet_c", fcfg_c, (("correlation", 1),)),
+            ("flownet2", replace(fcfg_c, flow=flownet2_config().flow),
+             (("correlation", 1), ("resample2d", 4)))):
+        div_flow, rgb_max = cfg.flow.div_flow, cfg.flow.rgb_max
+
+        def eager_step(state, b, div_flow=div_flow, rgb_max=rgb_max):
+            return flow_train_step(state, {
+                "input": flownet.preprocess_pair(b["im1"], b["im2"],
+                                                 rgb_max),
+                "flow": b["flow"]}, div_flow=div_flow)
+
+        add(compiled_train_net(
+            tag, card_f, lambda cfg=cfg: flownet.get_flow_net(cfg.flow, dev),
+            flownet.get_flow_net(cfg.flow, dev, gen).state_dict(), cfg,
+            flow_batches,
+            lambda d=div_flow, r=rgb_max: train_flow.flow_step(d, r),
+            eager_step, tmp, kernels=kernels))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def compiled_validation(card_f, dev, tmp) -> dict:
+    """The validation steps: ``run_validation`` (coco_res50_256x192 on a
+    synthetic COCO set, batches of COMPILED_VAL_BATCH) and
+    ``train_flow.validate`` (FlowNetC at 320x448 on a planted-flow corpus),
+    each graph route (one CUDA graph a batch shape) against its eager
+    route, bit for bit: the arrays handed to the evaluator, the EPE. The
+    flow validation's replays traced (K2 once a batch). Returns their
+    launches."""
+    import io
+
+    from flowtrack_tpu_torch.config import get_config
+    from flowtrack_tpu_torch.data.flow_dataset import FlowPairDataset
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tools.test import (build_val_dataset,
+                                                run_validation)
+    from flowtrack_tpu_torch.tools.train_flow import validate
+
+    t_part = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    fixtures = coco_fixture()
+    cfg = get_config("coco_res50_256x192")
+    model = get_pose_net(cfg.model, dev, gen)
+    root, _, det = fixtures.make_coco_fixture(tmp / "compiled_coco",
+                                              n_images=LOOP_IMAGES, persons=2)
+    cfg = replace(cfg, data=replace(cfg.data, root=str(root)),
+                  test=replace(cfg.test, bbox_file=det,
+                               batch_size=COMPILED_VAL_BATCH))
+    dataset = build_val_dataset(cfg)
+    arrays = {}
+    for route in ("graph", "eager"):
+        # the evaluator's AP table kept out of the smoke's output
+        with (eager_programs() if route == "eager"
+              else contextlib.nullcontext()), \
+                contextlib.redirect_stdout(io.StringIO()):
+            _, arrays[route] = evaluated(dataset, lambda: run_validation(
+                cfg, model, output_dir=str(tmp / f"compiled_{route}"),
+                dataset=dataset, device=dev))
+    rows = len(arrays["graph"]["image_id"])
+    require(rows == len(dataset) and rows > COMPILED_VAL_BATCH,
+            f"compiled validation: {rows} rows of {len(dataset)}")
+    for k, v in arrays["eager"].items():
+        require(np.array_equal(arrays["graph"][k], v),
+                f"compiled validation: the graph's {k} differ from eager")
+    del model
+    fcfg = get_config("flownet_c")
+    net = get_flow_net(fcfg.flow, dev, gen)
+    corpus = write_flow_corpus(tmp / "compiled_chairs", 2 * COMPILED_VAL_BATCH,
+                               np.random.default_rng(SEED + 19),
+                               fixtures.save_image)
+    val_ds = FlowPairDataset(root=corpus, crop_size=FLOW_TRAIN_HW,
+                             is_train=False)
+    epe = {}
+    for route in ("graph", "eager"):
+        with (eager_programs() if route == "eager"
+              else contextlib.nullcontext()):
+            epe[route] = validate(net, val_ds, fcfg, FLOW_TRAIN_HW,
+                                  COMPILED_VAL_BATCH, dev)
+    require(epe["graph"] == epe["eager"] and np.isfinite(epe["graph"]),
+            f"compiled flow validation: graph {epe['graph']} against eager "
+            f"{epe['eager']}")
+    batches = len(val_ds) // COMPILED_VAL_BATCH
+
+    def once_a_batch(launches):
+        # the net's graphs, captured by its first validation, replay: one
+        # K2 a batch
+        require(launches["correlation"] == batches,
+                f"flow validation: K2 launched {launches['correlation']} "
+                f"times over {batches} batches")
+
+    flow_trace = traced("compiled_flow_validation",
+                        lambda: validate(net, val_ds, fcfg, FLOW_TRAIN_HW,
+                                         COMPILED_VAL_BATCH, dev),
+                        once_a_batch)
+    log("compiled", part="validation", pose_rows=rows, pose_bitwise=True,
+        flow_pairs=len(val_ds), flow_epe=epe, flow_bitwise=True,
+        flow_validation_trace=flow_trace,
+        seconds=round(time.perf_counter() - t_part, 1), card=card_f)
+    return flow_trace["launches"]
+
+
+def phase_compiled(card, dev=None):
+    """The reference's compiled programs outside the clip, each a CUDA
+    graph per shape against its eager program on the card: the per-frame
+    engine (``compiled_frames``), the train steps (``compiled_train``) and
+    the validation steps (``compiled_validation``). Returns the launches
+    of their graph routes' traced runs."""
+    import tempfile
+    from pathlib import Path
+
+    dev = torch.device("cuda") if dev is None else dev
+    card_f = f"'{card}'"
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        parts = (compiled_frames(card_f, dev),
+                 compiled_train(card_f, dev, tmp),
+                 compiled_validation(card_f, dev, tmp))
+    for part in parts:
+        for k, v in part.items():
+            launches[k] += v
+    log("compiled", seconds=time.perf_counter() - t_phase,
+        launches=launches, card=card_f)
+    return launches
+
+
 # -- the train_cli phase: the train CLIs through their own main ------------
 
 # train_flow's corpus: TRAIN_CLI_PAIRS FlyingChairs-style pairs and
@@ -3465,7 +4073,7 @@ def remat_step(tag, model_cfg, cfg, base, batch, dev, sync):
     from flowtrack_tpu_torch.engine.loss import joints_mse_loss
     from flowtrack_tpu_torch.engine.train import create_train_state
     from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
-    from flowtrack_tpu_torch.tools import train
+    from flowtrack_tpu_torch.engine.train import train_step
 
     on_card = dev.type == "cuda"
     model = get_pose_net(model_cfg, dev)
@@ -3474,7 +4082,7 @@ def remat_step(tag, model_cfg, cfg, base, batch, dev, sync):
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    state, metrics = train.train_step(state, batch)
+    state, metrics = train_step(state, batch)
     out = {"loss": float(metrics["loss"]),
            "peak_gb": (torch.cuda.max_memory_allocated() / 2 ** 30
                        if on_card else None),
@@ -3488,7 +4096,7 @@ def remat_step(tag, model_cfg, cfg, base, batch, dev, sync):
     sync()
     t0 = time.perf_counter()
     for _ in range(REMAT_TIMED_STEPS):
-        state, metrics = train.train_step(state, batch)
+        state, metrics = train_step(state, batch)
     sync()
     out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / REMAT_TIMED_STEPS
     x = batch["input"].permute(0, 3, 1, 2).contiguous()
@@ -3504,7 +4112,7 @@ def remat_step(tag, model_cfg, cfg, base, batch, dev, sync):
     del hm
     if on_card:
         _, wall_ms, device = profile_run(
-            f"train_cli_{tag}", lambda: train.train_step(state, batch))
+            f"train_cli_{tag}", lambda: train_step(state, batch))
         busy_ms = sum(e.device_time_total for e in device) / 1e3
         out["profiled"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
                            "idle": 1 - busy_ms / wall_ms,
@@ -3573,8 +4181,26 @@ def phase_train_cli(card, dev=None):
         require(get_config("flownet_c").flow.dtype == "bfloat16",
                 "flownet_c trains in bf16")
         steps = -(-TRAIN_CLI_PAIRS // FLOW_TRAIN_BATCH)
+        val_batches = -(-TRAIN_CLI_VAL_PAIRS // FLOW_TRAIN_BATCH)
+
+        def flow_launches(what, epochs, validations, warps=0):
+            """The K2 (and warp) launches a train_flow run must show: one
+            K2 a step (its backward is plain; a step's first call is
+            itself a step), ``warps`` warps a step, one K2 a validation
+            batch and one for the first validation's warm-up (the run's
+            later validations replay its graphs)."""
+            def check(launches):
+                k2 = (epochs * steps + validations * val_batches
+                      + (validations > 0))
+                require(launches["correlation"] == k2 and
+                        launches["resample2d"] == warps * epochs * steps,
+                        f"{what}: {launches}, not {k2} K2 and "
+                        f"{warps * epochs * steps} warps")
+            return check
+
         state, launches, seconds = run_cli(train_flow.main, args + [
-            "--epochs", "2"], counters, total)
+            "--epochs", "2"], counters, total, traced=on_card,
+            check=flow_launches("train_flow", 2, 2))
         lines = jsonl(tmp / "flow_ckpt" / "metrics.jsonl")
         require(launches["correlation"] > 0,
                 f"train_flow: K2 never launched: {launches}")
@@ -3596,7 +4222,8 @@ def phase_train_cli(card, dev=None):
                               get_config("flownet_c").flow.div_flow, card_f)
         del state
         state, launches, seconds = run_cli(train_flow.main, args + [
-            "--epochs", "3", "--resume"], counters, total)
+            "--epochs", "3", "--resume"], counters, total, traced=on_card,
+            check=flow_launches("train_flow --resume", 1, 1))
         lines = jsonl(tmp / "flow_ckpt" / "metrics.jsonl")
         require([x["step"] for x in lines] == [0, 1, 2]
                 and state.step == 3 * steps,
@@ -3616,9 +4243,16 @@ def phase_train_cli(card, dev=None):
             fixtures.save_image(str(frames / f"{t:06d}.png"), im)
         write_flo(str(flo / "000000.flo"), flow)
         write_flo(str(flo / "000001.flo"), -flow)
+        def once_a_pair(launches):
+            # two pairs of one shape: the capture's warm-up, then a replay
+            # a pair
+            require(launches["correlation"] == 3,
+                    f"eval_flow: {launches}, not 3 K2")
+
         out, launches, seconds = run_cli(eval_flow.main, [
             "--cfg", "flownet_c", "--weights", npz, "--frames", str(frames),
-            "--gt-flow", str(flo), "--device", dev.type], counters, total)
+            "--gt-flow", str(flo), "--device", dev.type], counters, total,
+            traced=on_card, check=once_a_pair)
         require(launches["correlation"] > 0,
                 f"eval_flow: K2 never launched: {launches}")
         require(out["n_frames"] == 2 and np.isfinite(out["epe"]),
@@ -3635,7 +4269,8 @@ def phase_train_cli(card, dev=None):
             "--cfg", "flownet_c", "--triplets", chairs, "--crop", str(h),
             str(w), "--batch", str(FLOW_TRAIN_BATCH), "--epochs", "1",
             "--out", npz2, "--device", dev.type, "flow.variant=flownet2"],
-            counters, total)
+            counters, total, traced=on_card,
+            check=flow_launches("train_flow flownet2", 1, 0, warps=4))
         lines = jsonl(tmp / "fn2" / "metrics.jsonl")
         with np.load(npz2) as f:
             finite = all(np.isfinite(f[k]).all() for k in f.files)
@@ -3667,15 +4302,20 @@ def phase_train_cli(card, dev=None):
 
         steps = TRAIN_POSE_IMAGES * 2 // cfg.train.batch_size
         spent, validated = [], []
-        step_fn, validate_fn = train.train_step, train.run_validation
+        make_step, validate_fn = train.make_jit_train_step, train.run_validation
 
-        def timed_step(*a, **k):
-            sync()
-            t = time.perf_counter()
-            out = step_fn(*a, **k)
-            sync()
-            spent.append(time.perf_counter() - t)
-            return out
+        def timed_steps(*a, **k):
+            step_fn = make_step(*a, **k)
+
+            def timed_step(*a, **k):
+                sync()
+                t = time.perf_counter()
+                out = step_fn(*a, **k)
+                sync()
+                spent.append(time.perf_counter() - t)
+                return out
+
+            return timed_step
 
         def counted_validation(*a, **k):
             # main catches a failed validation and scores it 0, as the
@@ -3684,7 +4324,7 @@ def phase_train_cli(card, dev=None):
             validated.append(stats["AP"])
             return stats
 
-        train.train_step = timed_step
+        train.make_jit_train_step = timed_steps
         train.run_validation = counted_validation
         try:
             state, launches, seconds = run_cli(train.main, pose_args(
@@ -3694,7 +4334,8 @@ def phase_train_cli(card, dev=None):
             state_resumed, _, resume_s = run_cli(train.main, pose_args(
                 "pose", "--resume", "train.end_epoch=3"), counters, total)
         finally:
-            train.train_step, train.run_validation = step_fn, validate_fn
+            train.make_jit_train_step, train.run_validation = (
+                make_step, validate_fn)
         require(validations == 2 and len(validated) == 3
                 and np.isfinite(validated).all(),
                 f"train: validation returned {validations} of 2 times, then "
@@ -3708,7 +4349,8 @@ def phase_train_cli(card, dev=None):
                                         for x in lines),
                 f"train: metrics {lines}")
         require(state.step == 2 * steps, f"train: step {state.step}")
-        # the first step of the run is the warm-up (cuDNN's choices)
+        # the first step of the run is the warm-up (cuDNN's choices) and
+        # the capture of the step's graph; the rest replay it
         step_ms = float(np.mean(first_spent[1:])) * 1e3
         SUMMARY["train_cli_pose_ms_per_step"] = round(step_ms, 2)
         log("train_cli", cli="train", net="pose_resnet50",
@@ -4295,11 +4937,15 @@ def main() -> int:
     train = phase_train(card)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    compiled = phase_compiled(card)
+    torch.cuda.synchronize()
+    gc.collect()   # the compiled programs' graphs and their pools
+    torch.cuda.empty_cache()
     train_cli = phase_train_cli(card)
     torch.cuda.synchronize()
     by_path = {"slice": slice_, "flownet2": fn2, "fused": fused,
                "int8": int8, "eval": eval_, "serving": serving, "mesh": mesh,
-               "train": train, "train_cli": train_cli}
+               "train": train, "compiled": compiled, "train_cli": train_cli}
     for k in kernels:
         k["launches"] = (fn2 if k["name"] in ("correlation", "resample2d")
                          else fused)[k["name"]]

@@ -29,8 +29,12 @@ def joint_counts(pred_hm, gt_hm, thr: float = 0.5):
     n, h, w, k = pred_hm.shape
     pred, _ = get_max_preds(pred_hm)
     target, _ = get_max_preds(gt_hm)
-    norm = (torch.tensor([h, w], dtype=torch.float32, device=pred.device)
-            / torch.tensor(10.0, device=pred.device))
+    # made on the device, not copied from the host (a captured step takes
+    # no host data); divided by a tensor, as a CUDA division by a Python
+    # number multiplies by its rounded reciprocal
+    dev = pred.device
+    norm = (torch.where(torch.arange(2, device=dev) == 0, float(h), float(w))
+            / torch.full((), 10.0, device=dev))
     dists = torch.linalg.norm((pred - target) / norm, dim=-1)     # (N, K)
     visible = (target[..., 0] > 1.0) & (target[..., 1] > 1.0)     # (N, K)
     correct = (dists < thr) & visible
@@ -42,7 +46,7 @@ def accuracy_from_counts(correct, cnt_per_joint):
     acc_per_joint = torch.where(
         cnt_per_joint > 0,
         correct / cnt_per_joint.clamp(min=1),
-        torch.tensor(-1.0, device=correct.device))
+        torch.full((), -1.0, device=correct.device))
     valid = acc_per_joint >= 0
     avg = (torch.where(valid, acc_per_joint, 0.0).sum()
            / valid.sum().clamp(min=1))

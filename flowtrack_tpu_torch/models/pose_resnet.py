@@ -126,7 +126,11 @@ def _running_stats_kept(block: nn.Module):
 
 
 def _remat(block: nn.Module, x):
+    # the net draws no random numbers: no RNG state to save before the
+    # forward and restore for the recomputation (host work, a captured
+    # step included)
     return checkpoint(block, x, use_reentrant=False,
+                      preserve_rng_state=False,
                       context_fn=lambda: (contextlib.nullcontext(),
                                           _running_stats_kept(block)))
 

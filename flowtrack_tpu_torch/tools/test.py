@@ -7,7 +7,9 @@ mesh of devices (``mesh.*``: by default every card, or the one device
 asked for): batches of ``test.batch_size`` times the mesh's size, each
 slot's part copied ahead to its device, where a replica of the pose net
 runs the inputs and their mirror images with the flip merge, decode and
-rescoring (``engine/train.eval_step``), every slot dispatched before the
+rescoring (``engine/train.eval_step``: on a card one CUDA graph a replica
+and batch shape, ``make_jit_eval_step``, kept for the net's next
+validation), every slot dispatched before the
 results are gathered in order; then, on the host, OKS-NMS and COCO AP (or
 PCKh for MPII) with the port's evaluators.
 
@@ -33,9 +35,11 @@ from flowtrack_tpu_torch.config import (
 from flowtrack_tpu_torch.data import (BatchLoader, COCODataset, MPIIDataset,
                                       PoseTrackDataset)
 from flowtrack_tpu_torch.data.loader import device_prefetch
-from flowtrack_tpu_torch.engine.train import eval_step, pose_forward_fn
+from flowtrack_tpu_torch.engine.train import (make_jit_eval_step,
+                                              pose_forward_fn)
 from flowtrack_tpu_torch.parallel import batch_sharding, mesh_for, replicas
 from flowtrack_tpu_torch.tools.common import add_device_arg, pose_net
+from flowtrack_tpu_torch.utils.graphs import kept
 from flowtrack_tpu_torch.utils.logging import setup_logging
 from flowtrack_tpu_torch.utils.vis import save_debug_images
 
@@ -72,6 +76,9 @@ def run_validation(cfg, model, output_dir=None, dataset=None,
     if mesh is None:
         mesh = mesh_for(device, cfg.mesh.num_devices, cfg.mesh.data_axis)
     models = [m.eval() for m in replicas(mesh, model.to(mesh.flat()[0]))]
+    steps = [kept(m, ("eval", cfg.test, tuple(map(tuple, flip_pairs))),
+                  lambda: make_jit_eval_step(cfg, flip_pairs))
+             for m in models]
     loader = BatchLoader(dataset, cfg.test.batch_size * mesh.size,
                          pad_to_batch=True)
 
@@ -82,8 +89,7 @@ def run_validation(cfg, model, output_dir=None, dataset=None,
                                      sharding=batch_sharding(mesh)):
             n = slots[0]["n_valid"]
             # every slot dispatched before any result is fetched
-            outs = [eval_step(m, b, cfg, flip_pairs)
-                    for m, b in zip(models, slots)]
+            outs = [step(m, b) for step, m, b in zip(steps, models, slots)]
             if debug_dir and not dumped:
                 fwd = pose_forward_fn(models[0], cfg.test.flip_test,
                                       flip_pairs, cfg.test.shift_heatmap)

@@ -12,8 +12,10 @@ global batch, its batch norms normalise with the global batch
 (``convert_global_bn``) and the gradients are averaged before each step;
 rank 0 alone validates, checkpoints and writes the metrics.
 Each epoch: ``BatchLoader`` (shuffled with ``train.seed``, the short last
-batch dropped) copied ahead to the device, ``engine/train.train_step``
-(Adam with the milestone schedule), the reference's log line; then
+batch dropped) copied ahead to the device, ``engine/train.
+make_jit_train_step``'s step (``train_step``, Adam with the milestone
+schedule: on a card one CUDA graph per batch geometry, eagerly on the CPU
+and under a process group), the reference's log line; then
 validation through ``tools/test.run_validation`` on the dataset built once
 (``build_val_dataset``; absent validation data is logged and scores 0),
 ``CheckpointManager.save`` with the score, and one line of
@@ -48,7 +50,8 @@ from flowtrack_tpu_torch.data.loader import device_prefetch
 from flowtrack_tpu_torch.engine.checkpoint import (CheckpointManager,
                                                    load_npz_variables)
 from flowtrack_tpu_torch.engine.metrics import AverageMeter
-from flowtrack_tpu_torch.engine.train import create_train_state, train_step
+from flowtrack_tpu_torch.engine.train import (create_train_state,
+                                              make_jit_train_step)
 from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
 from flowtrack_tpu_torch.parallel import distributed, make_mesh, mesh_for
 from flowtrack_tpu_torch.pipeline import model_device
@@ -167,13 +170,14 @@ def train_epochs(args, cfg, device=None):
         start_epoch = epoch + 1
         log.info("resumed from epoch %d", epoch)
 
+    step_fn = make_jit_train_step(cfg.train.use_target_weight)
+
     val_ds = None
     for epoch in range(start_epoch, cfg.train.end_epoch):
         losses, accs, btime = AverageMeter(), AverageMeter(), AverageMeter()
         t0 = time.time()
         for i, batch in enumerate(device_prefetch(loader, device)):
-            state, metrics = train_step(state, batch,
-                                        cfg.train.use_target_weight)
+            state, metrics = step_fn(state, batch)
             losses.update(float(metrics["loss"]), len(batch["input"]) * ranks)
             accs.update(float(metrics["acc"]))
             btime.update(time.time() - t0)

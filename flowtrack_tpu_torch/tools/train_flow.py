@@ -14,10 +14,13 @@ random crops to the /64 ``--crop`` and flips, shuffled with the epoch as
 the seed, the short last batch filled by repeats; on the device
 ``models/flownet.preprocess_pair`` and ``engine/flow_train.
 flow_train_step`` (FlowNetC's cost volume is the correlation kernel, the
-FlowNet2 variants' warps the resample2d kernel). With ``--val-triplets``
-or ``--val-frames`` + ``--val-gt-flow``: the per-sample EPE of the
-centre-cropped validation pairs at full resolution, the repeats of a short
-batch left out. ``--ckpt-dir``: a checkpoint each epoch, the best by the
+FlowNet2 variants' warps the resample2d kernel) as one step, the
+reference's jitted closure: on a card one CUDA graph per batch geometry
+(``engine/train.graphed_step``), eagerly on the CPU and under a process
+group. With ``--val-triplets`` or ``--val-frames`` + ``--val-gt-flow``:
+the per-sample EPE of the centre-cropped validation pairs at full
+resolution (one CUDA graph per batch shape on a card), the repeats of a
+short batch left out. ``--ckpt-dir``: a checkpoint each epoch, the best by the
 lowest EPE (validation's, else training's), and ``--resume``. The trained
 weights go to ``--out`` as the JAX package's ``.npz`` tree, which both
 packages' ``eval_flow`` and the tracking pipelines read.
@@ -42,13 +45,14 @@ from flowtrack_tpu_torch.engine.checkpoint import (CheckpointManager,
                                                    save_npz_variables)
 from flowtrack_tpu_torch.engine.flow_train import flow_train_step
 from flowtrack_tpu_torch.engine.metrics import AverageMeter
-from flowtrack_tpu_torch.engine.train import create_train_state
+from flowtrack_tpu_torch.engine.train import create_train_state, graphed_step
 from flowtrack_tpu_torch.models.flownet import (get_flow_net, postprocess_flow,
                                                 preprocess_pair)
 from flowtrack_tpu_torch.parallel import distributed, mesh_for, part
 from flowtrack_tpu_torch.pipeline import model_device
 from flowtrack_tpu_torch.tools.common import add_device_arg
 from flowtrack_tpu_torch.utils.convert import FLOW_CONVERTERS
+from flowtrack_tpu_torch.utils.graphs import GraphCache, kept, net_state
 from flowtrack_tpu_torch.utils.logging import MetricsWriter, setup_logging
 
 log = logging.getLogger("flowtrack.train_flow")
@@ -68,20 +72,40 @@ def _on(b, device, share=(0, 1)):
 
 @torch.no_grad()
 def validate(model, val_ds, cfg, crop, batch, device) -> float:
-    """Mean per-sample EPE (px) of the net in eval mode over ``val_ds``."""
+    """Mean per-sample EPE (px) of the net in eval mode over ``val_ds``:
+    one graph a batch shape on the card, kept for the net's next
+    validation (``utils/graphs.kept``)."""
     fcfg = cfg.flow
     meter = AverageMeter()
     model.eval()
-    for b in flow_batches(val_ds, batch, shuffle=False, drop_last=False):
-        im1, im2, flow = _on(b, device)
+    graphs = kept(model, ("validate", fcfg, tuple(crop)), GraphCache)
+
+    def per_sample_epe(im1, im2, flow):
         pred = model(preprocess_pair(im1, im2, fcfg.rgb_max)
                      .permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         up = postprocess_flow(pred, fcfg.variant, crop, fcfg.div_flow)
         err = torch.sqrt(((up - flow) ** 2).sum(-1))
-        epe = err.sum((1, 2)) / err.new_tensor(err.shape[1] * err.shape[2])
+        return err.sum((1, 2)) / err.new_full((), err.shape[1] * err.shape[2])
+
+    for b in flow_batches(val_ds, batch, shuffle=False, drop_last=False):
+        args = _on(b, device)
+        epe = graphs.run(tuple(a.shape for a in args), per_sample_epe, args,
+                         lambda: net_state(model))
         real = epe[:b["n_real"]].cpu()
         meter.update(float(real.mean()), n=len(real))
     return meter.avg
+
+
+def flow_step(div_flow: float, rgb_max: float):
+    """The reference's jitted closure (tools/train_flow.py:117): the pairs
+    normalised on the device (``preprocess_pair``) and ``flow_train_step``,
+    as ``graphed_step`` over batches {im1, im2, flow}."""
+    def step(state, b):
+        return flow_train_step(
+            state, {"input": preprocess_pair(b["im1"], b["im2"], rgb_max),
+                    "flow": b["flow"]}, div_flow=div_flow)
+
+    return graphed_step(step, ("im1", "im2", "flow"))
 
 
 def main(argv=None):
@@ -189,6 +213,7 @@ def train_epochs(args, cfg, device=None):
             start_epoch = epoch + 1
             log.info("resumed from epoch %d", epoch)
 
+    step_fn = flow_step(div_flow, rgb_max)
     meter = AverageMeter()
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
@@ -198,9 +223,7 @@ def train_epochs(args, cfg, device=None):
         for b in flow_batches(ds, global_batch, shuffle=True, seed=epoch,
                               drop_last=False):
             im1, im2, fl = _on(b, device, share)
-            batch = {"input": preprocess_pair(im1, im2, rgb_max),
-                     "flow": fl}
-            state, m = flow_train_step(state, batch, div_flow=div_flow)
+            state, m = step_fn(state, {"im1": im1, "im2": im2, "flow": fl})
             meter.update(float(m["epe"]), n=len(b["im1"]))
         if not rank0:
             distributed.barrier()

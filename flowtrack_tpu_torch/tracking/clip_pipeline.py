@@ -34,14 +34,14 @@ device value, no tensor made from host data), and ``real_frames`` is a
 device int32 scalar, as the reference's traced argument is. So on a CUDA
 device ``run_prepared_lanes`` replays it as one CUDA graph, the
 counterpart of the reference's ``jax.jit(clip_fn)`` (:441) and its vmapped
-``_clips_fn`` (:445): one ``ClipGraph`` per geometry (lanes, frames,
-persons, frame size, the frames' dtype, padded or not), captured at first
-use into the tracker's one memory pool, and captured again after the nets'
-tensors changed (a net moved, loaded or replaced). On the CPU ``_clip``
-runs eagerly; the eager ``_clip`` is the graph's plain version. Each
-stage runs in a ``torch.profiler.record_function`` range named
-``clip.<stage>``, which a profile of the eager ``_clip`` shows (a replayed
-graph has no host ranges).
+``_clips_fn`` (:445): one ``utils/graphs.Graph`` per geometry (lanes,
+frames, persons, frame size, the frames' dtype, padded or not), captured at
+first use into the tracker's one memory pool (``GraphCache``), and captured
+again after the nets' tensors changed (a net moved, loaded or replaced).
+On the CPU ``_clip`` runs eagerly; the eager ``_clip`` is the graph's
+plain version. Each stage runs in a ``torch.profiler.record_function``
+range named ``clip.<stage>``, which a profile of the eager ``_clip`` shows
+(a replayed graph has no host ranges).
 
 Over a mesh of devices (``parallel/mesh.py``): ``track_clips(sharding=)``
 splits the lanes into one group per mesh slot, each run by this tracker's
@@ -59,8 +59,6 @@ the frame-sharded route runs eagerly (no graph).
 from __future__ import annotations
 
 import copy
-import gc
-import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -81,7 +79,6 @@ from flowtrack_tpu_torch.models.flownet import (
 from flowtrack_tpu_torch.models.layers import torch_dtype
 from flowtrack_tpu_torch.ops.crop import crop_frames
 from flowtrack_tpu_torch.ops.decode import get_final_preds, rescore
-from flowtrack_tpu_torch.ops.fused_resnet import FusedPoseResNet
 from flowtrack_tpu_torch.ops.nms import iou_matrix
 from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
 from flowtrack_tpu_torch.parallel.mesh import (NamedSharding, normal_device,
@@ -96,6 +93,7 @@ from flowtrack_tpu_torch.tracking.tracker import (
     greedy_match,
     propagate_poses,
 )
+from flowtrack_tpu_torch.utils.graphs import GraphCache, net_state, state_key
 
 
 def _box_xyxy_to_center_scale(boxes, aspect_ratio: float,
@@ -172,96 +170,6 @@ def real_frames_scalar(budget_frames: int, f: int, device):
     return torch.full((), budget_frames, dtype=torch.int32, device=device)
 
 
-def clip_state(*nets) -> list:
-    """What a captured clip reads of its nets beside its inputs: their
-    parameters and buffers, and a fused net's checked blocks, which keep
-    the transposed weights that its kernel launches read."""
-    state = []
-    for net in nets:
-        # every module's own tensors, walked without named_modules' prefix
-        # strings: this runs before each replay
-        stack = [net]
-        while stack:
-            m = stack.pop()
-            state += [t for t in (*m._parameters.values(),
-                                  *m._buffers.values()) if t is not None]
-            stack += m._modules.values()
-        if isinstance(net, FusedPoseResNet):
-            state += net.stage_blocks()
-    return state
-
-
-def state_key(state) -> tuple:
-    """Identity of ``clip_state``'s objects and of the memory each tensor
-    holds: it changes when a net is replaced, moved or loaded (a fused net
-    then checks and transposes its blocks anew)."""
-    return tuple((id(o), o.data_ptr() if isinstance(o, torch.Tensor) else 0)
-                 for o in state)
-
-
-class ClipGraph:
-    """One geometry's clip program captured as a CUDA graph.
-
-    ``inputs`` are static device buffers that each ``run`` fills by
-    ``copy_`` (the prepared args, the six seed leaves and, for a padded
-    clip, ``real``, the real frame count); ``outputs`` is the captured
-    result, which the next replay overwrites, so ``run`` returns clones.
-    Capture follows one eager warm-up run on the capture's side stream, so
-    that library handles and workspaces, cuDNN's algorithm choice and the
-    kernels' first ``cudaFuncSetAttribute`` happen outside it. ``held``
-    keeps the nets' tensors that the capture read (``clip_state``), so
-    none of them is freed while the graph exists. The capture allocates
-    from ``pool`` on ``stream``, which a tracker's graphs share (they
-    replay one after another on one stream, and each replay's outputs are
-    cloned before the next; a cached block serves only the stream it was
-    allocated on); ``pool_bytes`` is what the pool grew by. A capture that
-    fails raises; there is no eager fallback."""
-
-    def __init__(self, clip_fn, args, real_frames, state, pool, stream):
-        self.device = args[0].device
-        # capture with the tracker's card current: the kernels' launches
-        # and their per-device attributes, and the capture's allocations,
-        # are that card's whichever device the caller made current
-        with torch.cuda.device(self.device):
-            self._capture(clip_fn, args, real_frames, state, pool, stream)
-
-    def _capture(self, clip_fn, args, real_frames, state, pool, stream):
-        dev = self.device
-        self.held = [o.detach() if isinstance(o, torch.Tensor) else o
-                     for o in state]
-        self.inputs = [a.clone() for a in args]
-        self.real = None if real_frames is None else real_frames.clone()
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            clip_fn(*self.inputs, real_frames=self.real)
-        stream.synchronize()
-        # torch.cuda.graph empties the allocator's cache on entry; doing it
-        # first leaves what the capture reserves as the pool's growth
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            out = clip_fn(*self.inputs, real_frames=self.real)
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.outputs = (*out[:5], *out[5])
-
-    def run(self, args, real_frames=None):
-        """Fill the inputs, replay, and return clones of the outputs in
-        ``_clip``'s structure."""
-        with torch.cuda.device(self.device):
-            for buf, a in zip(self.inputs, args):
-                buf.copy_(a)
-            if self.real is not None:
-                self.real.copy_(real_frames)
-            self.graph.replay()
-            out = [t.clone() for t in self.outputs]
-        return (*out[:5], tuple(out[5:]))
-
-
 class ClipTracker:
     """Batched-clip FlowTrack on one device. All frames share one (H, W).
 
@@ -289,11 +197,8 @@ class ClipTracker:
         self.pose_model = pose_model.to(device).eval()
         self.flow_model = flow_model.to(device).eval()
         # the CUDA graphs of the clip program, by geometry, all captured
-        # while the nets held the tensors ``_state_key`` names, into one
-        # memory pool on one capture stream
-        self.graphs: dict = {}
-        self._state_key = None
-        self._capture = None
+        # while the nets held the same tensors, into one memory pool
+        self.graphs = GraphCache()
         # the trackers of other devices of a mesh (``replica``), built
         # while the nets held the tensors ``_replica_key`` names
         self._replicas: dict = {}
@@ -306,7 +211,7 @@ class ClipTracker:
         device = normal_device(device)
         if device == normal_device(self.device):
             return self
-        key = state_key(clip_state(self.pose_model, self.flow_model))
+        key = state_key(net_state(self.pose_model, self.flow_model))
         if key != self._replica_key:
             self._replicas.clear()
             self._replica_key = key
@@ -670,7 +575,7 @@ class ClipTracker:
         one batched run, lane i seeded by ``seeds[i]`` (None: the empty
         seed; ``seeds`` None: every lane empty). ``budget_frames``: the real
         frame count (1..F) of clips padded with invalid frames, for every
-        lane. On a CUDA device the run replays the geometry's ``ClipGraph``
+        lane. On a CUDA device the run replays the geometry's graph
         (captured at first use, and again after the nets' tensors changed),
         elsewhere it runs ``_clip`` eagerly. Returns device tensors (preds,
         maxvals, scores, ids, valid, seed_out), each with a leading C, that
@@ -683,25 +588,16 @@ class ClipTracker:
         args = (*device_args, *seed)
         real = None if budget_frames is None else real_frames_scalar(
             budget_frames, device_args[0].shape[1], self.device)
-        if self.device.type != "cuda":
-            return self._clip(*args, real_frames=real)
-        state = clip_state(self.pose_model, self.flow_model)
-        key = state_key(state)
-        if key != self._state_key:
-            # every graph read the nets' former tensors; a new pool, as the
-            # allocator frees one only when no graph uses it
-            self.graphs.clear()
-            self._state_key = key
-            self._capture = None
-        if self._capture is None:
-            self._capture = (torch.cuda.graph_pool_handle(),
-                             torch.cuda.Stream(self.device))
-        geometry = self.graph_key(device_args, budget_frames)
-        graph = self.graphs.get(geometry)
-        if graph is None:
-            graph = self.graphs[geometry] = ClipGraph(
-                self._clip, args, real, state, *self._capture)
-        return graph.run(args, real)
+        if real is None:
+            clip = self._clip
+        else:
+            args = (*args, real)
+
+            def clip(*a):
+                return self._clip(*a[:-1], real_frames=a[-1])
+        return self.graphs.run(
+            self.graph_key(device_args, budget_frames), clip, args,
+            lambda: net_state(self.pose_model, self.flow_model))
 
     def run_prepared(self, device_args, budget_frames: Optional[int] = None,
                      seed=None):

@@ -4,34 +4,36 @@ greedy OKS matching -> track ids.
 Port of ``flowtrack_tpu/tracking/tracker.py``: the tensor primitives
 ``propagate_poses`` (tracker.py:44), ``boxes_from_poses`` (:51),
 ``greedy_match`` (:69), ``propagate_and_boxes`` (:110),
-``match_propagated`` (:130) and ``match_step`` (:143), the streaming
-per-frame ``FlowTracker`` (:170) with its ``Track`` records, and
-``tracks_to_posetrack_json`` (:329). The reference's ``nms_boxes_padded``
-(:120) is ``ops.nms.nms_boxes`` here: the port runs the real candidate
-count, so there is no padding to mask.
+``nms_boxes_padded`` (:120), ``match_propagated`` (:130) and ``match_step``
+(:143), the streaming per-frame ``FlowTracker`` (:170) with its ``Track``
+records, and ``tracks_to_posetrack_json`` (:329).
 
 The primitives take leading batch dimensions (one per clip lane) and never
 sync with the host: the greedy loop has a static trip count and keeps its
-state in tensors. The reference pads the streaming tracker's track and
-candidate counts to ``max_persons`` multiples so that XLA compiles once per
-bucket; eager PyTorch compiles nothing, so the port runs the real counts.
-Padding is order-safe (invalid entries read -inf), so the results are the
-same.
+state in tensors. As in the reference, the streaming tracker pads its track
+and candidate counts to ``max_persons`` multiples, with ``valid`` masks
+(padding is order-safe: invalid entries read -inf), and runs each of its
+three device steps (propagate and boxes, NMS, match) as one program per
+bucket: on the card a CUDA graph (``utils/graphs.py``), the counterpart of
+the reference's ``jax.jit``, on the CPU eagerly on the same padded
+tensors.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from flowtrack_tpu_torch.config import Config
-from flowtrack_tpu_torch.ops.nms import nms_boxes
+from flowtrack_tpu_torch.ops.nms import greedy_nms_from_matrix, iou_matrix
 from flowtrack_tpu_torch.ops.oks import oks_matrix, pose_area
 from flowtrack_tpu_torch.ops.warp import flow_gather
 from flowtrack_tpu_torch.pipeline import model_device
+from flowtrack_tpu_torch.utils.graphs import GraphCache
 
 
 def propagate_poses(joints, flow):
@@ -92,6 +94,14 @@ def propagate_and_boxes(track_joints, flow, expand: float):
     return prop, boxes_from_poses(prop, expand)
 
 
+def nms_boxes_padded(xyxy, scores, valid, thresh: float):
+    """Greedy IoU NMS over a padded candidate set: xyxy (N, 4), scores
+    (N,), valid (N,) -> keep (N,) bool. Padding is greedy-order-safe:
+    invalid entries read -inf, are never kept and never suppress."""
+    return greedy_nms_from_matrix(iou_matrix(xyxy, xyxy), scores, thresh,
+                                  valid)
+
+
 def match_propagated(prop_joints, track_valid, cand_joints, cand_valid,
                      track_thr: float = 0.5):
     """Greedy OKS assignment of already propagated tracks (M, K, 2) to
@@ -115,6 +125,10 @@ def _numpy(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
 @dataclass
 class Track:
     track_id: int
@@ -135,8 +149,9 @@ class FlowTracker:
     (H, W, 2) full-resolution flow, numpy or a tensor (typically
     ``pipeline.FlowPredictor``), or None for the flow-free ablation (the
     paper's baseline: detector boxes only, greedy OKS matching on
-    unpropagated poses). Propagation, NMS and matching run on ``device``;
-    'cuda' without a CUDA device raises."""
+    unpropagated poses). Propagation, NMS and matching run on ``device``,
+    padded to ``track.max_persons`` buckets, one graph a step and bucket
+    on the card (``graphs``); 'cuda' without a CUDA device raises."""
 
     cfg: Config
     pose_fn: Callable
@@ -146,6 +161,7 @@ class FlowTracker:
     next_id: int = 0
     _prev_image: Optional[np.ndarray] = None
     _frame: int = 0
+    graphs: GraphCache = field(default_factory=GraphCache, repr=False)
 
     def __post_init__(self):
         self.device = model_device(self.device)
@@ -156,35 +172,45 @@ class FlowTracker:
         self._prev_image = None
         self._frame = 0
 
+    def _run(self, key, fn, *arrays):
+        """``fn`` on the arrays put on the device: the graph of ``key`` on
+        the card."""
+        args = [torch.as_tensor(a, device=self.device) for a in arrays]
+        return self.graphs.run(key, fn, args)
+
     @torch.inference_mode()
     def step(self, image: np.ndarray, det_boxes: np.ndarray,
              det_scores: np.ndarray) -> List[Track]:
         """Process one frame. det_boxes: (D, 4) xywh; det_scores: (D,).
         Returns the updated live track list (also kept as state)."""
         tcfg = self.cfg.track
-        dev = self.device
+        q = tcfg.max_persons
         k = self.cfg.model.num_joints
         flow = None
         if self.flow_fn is not None and self._prev_image is not None \
                 and self.tracks:
             flow = torch.as_tensor(self.flow_fn(self._prev_image, image),
-                                   dtype=torch.float32, device=dev)
+                                   dtype=torch.float32, device=self.device)
 
-        # --- propagated boxes of the surviving tracks
+        # --- propagated boxes of the surviving tracks, the track count
+        # padded to a max_persons bucket
         prop_boxes_xywh = np.zeros((0, 4), np.float32)
         prop_scores = np.zeros((0,), np.float32)
-        prop = None
-        if self.tracks:
-            prop = torch.as_tensor(np.stack([t.joints for t in self.tracks]),
-                                   dtype=torch.float32, device=dev)
-        if flow is not None:
-            prop, pb = propagate_and_boxes(prop, flow, tcfg.box_expand)
-            pb = pb.cpu().numpy()
+        if self.tracks and flow is not None:
+            m = len(self.tracks)
+            tj = np.zeros((_round_up(m, q), k, 2), np.float32)
+            tj[:m] = np.stack([t.joints for t in self.tracks])
+            prop, pb = self._run(
+                ("propagate", tj.shape, flow.shape, tcfg.box_expand),
+                partial(propagate_and_boxes, expand=tcfg.box_expand),
+                tj, flow)
+            prop, pb = prop.cpu().numpy()[:m], pb.cpu().numpy()[:m]
             prop_boxes_xywh = np.concatenate(
                 [pb[:, :2], pb[:, 2:] - pb[:, :2]], axis=1)
             prop_scores = np.array([t.score for t in self.tracks], np.float32)
 
-        # --- unified suppression over detections and propagated boxes
+        # --- unified suppression over detections and propagated boxes, the
+        # candidate count padded to a bucket
         det_boxes = np.asarray(det_boxes, np.float32).reshape(-1, 4)
         det_scores = np.asarray(det_scores, np.float32).reshape(-1)
         boxes = np.concatenate([det_boxes, prop_boxes_xywh], axis=0)
@@ -192,11 +218,19 @@ class FlowTracker:
         good = (boxes[:, 2] > 1) & (boxes[:, 3] > 1)
         boxes, scores = boxes[good], scores[good]
         if len(boxes) and tcfg.box_nms_thre < 1.0:
-            xyxy = np.concatenate([boxes[:, :2], boxes[:, :2] + boxes[:, 2:]],
-                                  axis=1)
-            keep = nms_boxes(torch.as_tensor(xyxy, device=dev),
-                             torch.as_tensor(scores, device=dev),
-                             tcfg.box_nms_thre).cpu().numpy()
+            n = len(boxes)
+            npad = _round_up(n, q)
+            bx = np.zeros((npad, 4), np.float32)
+            bx[:n] = np.concatenate(
+                [boxes[:, :2], boxes[:, :2] + boxes[:, 2:]], axis=1)
+            sc = np.zeros((npad,), np.float32)
+            sc[:n] = scores
+            nv = np.zeros((npad,), bool)
+            nv[:n] = True
+            keep = self._run(
+                ("nms", npad, tcfg.box_nms_thre),
+                partial(nms_boxes_padded, thresh=tcfg.box_nms_thre),
+                bx, sc, nv).cpu().numpy()[:n]
             boxes, scores = boxes[keep], scores[keep]
 
         # --- pose on the union
@@ -211,13 +245,25 @@ class FlowTracker:
             rescored = np.zeros((0,), np.float32)
 
         # --- greedy OKS id assignment against the propagated tracks (the
-        # tracks as they are in the flow-free ablation)
+        # tracks as they are in the flow-free ablation), both sides padded
+        # to pmax, a max_persons multiple
         assign = np.full((len(joints),), -1, np.int32)
         if len(self.tracks) and len(joints):
-            cand = torch.as_tensor(joints, dtype=torch.float32, device=dev)
-            assign = match_propagated(
-                prop, None, cand, None,
-                track_thr=tcfg.track_oks_thre).cpu().numpy()
+            if flow is None:
+                prop = np.stack([t.joints for t in self.tracks])
+            pmax = _round_up(max(q, len(self.tracks), len(joints)), q)
+            tj = np.zeros((pmax, k, 2), np.float32)
+            tj[:len(prop)] = prop
+            tv = np.zeros((pmax,), bool)
+            tv[:len(self.tracks)] = True
+            cj = np.zeros((pmax, k, 2), np.float32)
+            cj[:len(joints)] = joints
+            cv = np.zeros((pmax,), bool)
+            cv[:len(joints)] = True
+            assign = self._run(
+                ("match", pmax, tcfg.track_oks_thre),
+                partial(match_propagated, track_thr=tcfg.track_oks_thre),
+                tj, tv, cj, cv).cpu().numpy()[:len(joints)]
 
         new_tracks: List[Track] = []
         for j in range(len(joints)):

@@ -25,11 +25,10 @@ from flowtrack_tpu_torch.ops import int8_conv
 from flowtrack_tpu_torch.ops import warp as twarp
 from flowtrack_tpu_torch.tracking.clip_pipeline import (
     ClipTracker,
-    clip_state,
     pad_detections,
     recovery_rank_limit,
-    state_key,
 )
+from flowtrack_tpu_torch.utils.graphs import net_state, state_key
 from tests.test_torch_clip_scenarios import (
     StubFlowTorch,
     StubPoseTorch,
@@ -140,7 +139,7 @@ def test_fused_stage_op_checks_its_tensors_for_the_kernel():
 
 def test_clip_state_names_what_a_graph_reads():
     """On the card a tracker replays a captured clip graph only while its
-    nets hold the tensors that the capture read (``clip_state``, keyed by
+    nets hold the tensors that the capture read (``net_state``, keyed by
     ``state_key``), and drops its graphs when the key changes. The key
     stays from run to run and when a state is loaded into a net's tensors
     in place (the graph reads the new values); it changes when a fused net
@@ -152,12 +151,12 @@ def test_clip_state_names_what_a_graph_reads():
     flow = StubFlowTorch()
 
     def key(*nets):
-        return state_key(clip_state(*nets))
+        return state_key(net_state(*nets))
 
     k0 = key(fused, flow)
     blocks = fused.stage_blocks()
     assert key(fused, flow) == k0 and fused.stage_blocks() is blocks
-    assert all(any(b is o for o in clip_state(fused, flow)) for b in blocks)
+    assert all(any(b is o for o in net_state(fused, flow)) for b in blocks)
     fused.load_state_dict(fused.state_dict())
     k1 = key(fused, flow)
     assert k1 != k0

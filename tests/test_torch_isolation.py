@@ -80,6 +80,9 @@ def test_port_imports_no_jax():
                 "flowtrack_tpu_torch.tools.track_video",
                 "flowtrack_tpu_torch.tools.demo",
                 "flowtrack_tpu_torch.tools.eval_flow",
+                "flowtrack_tpu_torch.tools.train",
+                "flowtrack_tpu_torch.tools.train_flow",
+                "flowtrack_tpu_torch.utils.graphs",
                 "flowtrack_tpu_torch.parallel",
                 "flowtrack_tpu_torch.parallel.mesh",
                 "flowtrack_tpu_torch.parallel.distributed"):
@@ -237,6 +240,34 @@ def test_serving_entry_points_on_cuda_raise_without_cuda():
     # on the CPU when asked
     assert FlowTracker(Config(), lambda *a: None, device="cpu").device.type \
         == "cpu"
+
+
+def test_compiled_entry_points_keep_the_reference_signatures():
+    """The reference's jitted entry points that the port replays as CUDA
+    graphs keep their signatures: ``make_jit_train_step``, and the
+    per-frame engine's ``PosePredictor`` (``max_persons``),
+    ``nms_boxes_padded`` and ``propagate_and_boxes``."""
+    import inspect
+
+    from flowtrack_tpu import pipeline as ref_pipeline
+    from flowtrack_tpu.engine import train as ref_train
+    from flowtrack_tpu.tracking import tracker as ref_tracker
+    from flowtrack_tpu_torch import pipeline
+    from flowtrack_tpu_torch.engine import train
+    from flowtrack_tpu_torch.tracking import tracker
+
+    def params(fn):
+        return [(p.name, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    assert params(train.make_jit_train_step) == params(
+        ref_train.make_jit_train_step)
+    for name in ("nms_boxes_padded", "propagate_and_boxes",
+                 "match_propagated"):
+        assert [n for n, _ in params(getattr(tracker, name))] == [
+            n for n, _ in params(getattr(ref_tracker, name))], name
+    assert ("max_persons", None) in params(pipeline.PosePredictor) and \
+        ("max_persons", None) in params(ref_pipeline.PosePredictor)
 
 
 def test_kernel_loader_raises_without_cuda():
