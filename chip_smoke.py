@@ -36,7 +36,9 @@ evaluators behind them. Phases that each print one or more lines:
      around eager calls and ``device_ms`` from a CUDA graph of 20 calls, on
      which its share of the bound is reckoned; fused_stage,
      in the form each chunk's shape dispatches to, also beside the same
-     blocks through cuDNN bf16 convolutions);
+     blocks through cuDNN bf16 convolutions; the stamp kernel's seven
+     clock readings in order, their span within 10 us of CUDA events' over
+     the same work, eagerly and replayed in a CUDA graph);
   4. slice: three chained 16-frame 384x640 clips of slice 1 at full width
      with seeded random weights after a warm-up clip, the crop and
      correlation launch counts set to 0 just before the run and read just
@@ -695,6 +697,60 @@ def check_divisions(dev, rng):
         log("kernels", check=f"{name} card == cpu", values=values, differ=0)
 
 
+STAMP_TOL_MS = 0.01
+
+
+def check_stamp(dev):
+    """``flowtrack::stamp`` (csrc/stamp.cu) on the card: seven stamps around
+    six matmuls do not decrease, and the first and last differ by the CUDA
+    events' time of the same work within ``STAMP_TOL_MS``; captured in a
+    CUDA graph, each replay reads the clock anew. The device sleeps first,
+    so that every launch is queued before the work starts and no host
+    launch time lies between the events."""
+    from flowtrack_tpu_torch.utils import profiling
+
+    a = torch.randn(2048, 2048, device=dev)
+    buf = torch.zeros(7, dtype=torch.int64, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def stamped():
+        profiling.stamp(buf, 0)
+        for i in range(1, 7):
+            a @ a
+            profiling.stamp(buf, i)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        stamps = buf.cpu()
+        require((stamps.diff() >= 0).all(), f"stamps decrease: {stamps}")
+        stamp_ms = (stamps[-1] - stamps[0]).item() / 1e6
+        event_ms = start.elapsed_time(end)
+        require(0 < stamp_ms <= event_ms + STAMP_TOL_MS
+                and event_ms - stamp_ms <= STAMP_TOL_MS,
+                f"stamps span {stamp_ms} ms, events {event_ms} ms")
+        return stamps, stamp_ms, event_ms
+
+    stamped()
+    _, stamp_ms, event_ms = timed(stamped)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        stamped()
+    first, _, _ = timed(graph.replay)
+    second, g_stamp_ms, g_event_ms = timed(graph.replay)
+    require(second[0] > first[-1], "a replay reread no clock: "
+            f"{first.tolist()} then {second.tolist()}")
+    log("kernels", kernel="stamp", stamp_ms=stamp_ms, event_ms=event_ms,
+        graph_stamp_ms=g_stamp_ms, graph_event_ms=g_event_ms,
+        tol_ms=STAMP_TOL_MS)
+
+
 def phase_kernels():
     from flowtrack_tpu_torch.ops import correlation as corr_mod
 
@@ -704,6 +760,7 @@ def phase_kernels():
 
     results.append(check_crop(dev, rng))
     check_divisions(dev, rng)
+    check_stamp(dev)
 
     # K2: the FlowNetC cost volume of one clip's 15 pairs at 1/8 resolution
     shape = (FRAMES - 1, FRAME_H // 8, FRAME_W // 8, 256)

@@ -29,7 +29,8 @@ from typing import Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("crop.cu", "correlation.cu", "resample2d.cu", "fused_stage.cu")
+SOURCES = ("crop.cu", "correlation.cu", "resample2d.cu", "fused_stage.cu",
+           "stamp.cu")
 HEADERS = ("hopper.cuh",)
 CHECKOUT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
                       / "flowtrack_tpu_torch")
@@ -72,6 +73,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _P],
     "ft_fused_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _I, _P],
+    "ft_stamp": [_P, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

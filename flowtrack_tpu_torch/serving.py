@@ -29,6 +29,17 @@ step that does not divide runs on the mesh's first device, as the
 reference's does (serving.py:278-284). A stream's seed stays on the device
 its lane last ran on and is copied device to device when a later step
 places the stream elsewhere.
+
+Tracing (``utils/profiling``): a dispatch runs in the span
+``serving.dispatch`` (the lanes stacked and padded in ``serving.stack``,
+then the tracker's ``clip.host_lanes``, ``clip.put_lanes`` and
+``clip.replay``), a fetch in ``serving.fetch`` (``clip.to_host``, then the
+emissions built in ``serving.emit``). Each fetch counts the pose rows the
+batch ran (``pose.forwards``) and those that held a reported person
+(``pose.useful``: each lane's detections and valid recovered slots from its
+first new frame on, as many times as the flip test poses them), and, with
+stamps, adds each stage's device seconds (``device.clip.<stage>``) and the
+new frames (``device.frames``).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from flowtrack_tpu_torch.parallel.mesh import NamedSharding
 from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
                                                         pad_detections,
                                                         slot_device, seed_to)
+from flowtrack_tpu_torch.utils import profiling
 from flowtrack_tpu_torch.utils.video import pad_tail_clip
 
 
@@ -253,33 +265,42 @@ class MultiStreamTracker:
         (``ClipTracker.run_sharded_lanes``); otherwise all run on the
         tracker's device, or on the mesh's first. Updates the device-side
         seeds and the stream state; returns the pending entry for _fetch:
-        one (device outputs, lane metas) per device group."""
-        bufs = [self._frames[sid][:self.clip_len] for sid in sids]
-        frames = np.stack([f for buf in bufs for f, _, _ in buf])
-        dets = [pad_detections([b for _, b, _ in buf], [s for _, _, s in buf],
-                               self.max_persons) for buf in bufs]
-        host = (frames.reshape(len(sids), self.clip_len, *frames.shape[1:]),
-                *(np.stack(x) for x in zip(*dets)))
-        offsets = [self._first_global(sid) for sid in sids]
-        seeds = [self._seed[sid] for sid in sids]
-        if (self.sharding is not None
-                and len(sids) % self.sharding.mesh.size == 0):
-            parts = self.tracker.run_sharded_lanes(
-                self.sharding, *host, seeds=seeds, frame_offsets=offsets)
-        else:
-            tracker = self.tracker if self.sharding is None else \
-                self.tracker.replica(slot_device(self.sharding.mesh, {}))
-            args = tracker.prepare_lanes(*host, frame_offsets=offsets)
-            parts = [(slice(0, len(sids)), tracker.run_prepared_lanes(
-                args, [seed_to(s, tracker.device) for s in seeds]))]
-        entry = []
-        for lanes, out_dev in parts:
-            metas = []
-            for lane, sid in enumerate(sids[lanes]):
-                # per-lane seed slices stay on the lane's device
-                self._seed[sid] = tuple(leaf[lane] for leaf in out_dev[5])
-                metas.append((sid, lane) + self._advance(sid))
-            entry.append((out_dev[:5], metas))
+        one (device outputs, lane metas, the lanes' posed detections) per
+        device group; the last is None unless tracing records."""
+        with profiling.span("serving.dispatch"):
+            with profiling.span("serving.stack"):
+                bufs = [self._frames[sid][:self.clip_len] for sid in sids]
+                frames = np.stack([f for buf in bufs for f, _, _ in buf])
+                dets = [pad_detections([b for _, b, _ in buf],
+                                       [s for _, _, s in buf],
+                                       self.max_persons) for buf in bufs]
+                host = (frames.reshape(len(sids), self.clip_len,
+                                       *frames.shape[1:]),
+                        *(np.stack(x) for x in zip(*dets)))
+            offsets = [self._first_global(sid) for sid in sids]
+            seeds = [self._seed[sid] for sid in sids]
+            if (self.sharding is not None
+                    and len(sids) % self.sharding.mesh.size == 0):
+                parts = self.tracker.run_sharded_lanes(
+                    self.sharding, *host, seeds=seeds, frame_offsets=offsets)
+            else:
+                tracker = self.tracker if self.sharding is None else \
+                    self.tracker.replica(slot_device(self.sharding.mesh, {}))
+                args = tracker.prepare_lanes(*host, frame_offsets=offsets)
+                parts = [(slice(0, len(sids)), tracker.run_prepared_lanes(
+                    args, [seed_to(s, tracker.device) for s in seeds]))]
+            # the detections the pose pass reports, for the fetch's count
+            posed = (self.tracker.keyframe_valid(host[3], offsets)
+                     if profiling.recording() else None)
+            entry = []
+            for lanes, out_dev in parts:
+                metas = []
+                for lane, sid in enumerate(sids[lanes]):
+                    # per-lane seed slices stay on the lane's device
+                    self._seed[sid] = tuple(leaf[lane] for leaf in out_dev[5])
+                    metas.append((sid, lane) + self._advance(sid))
+                entry.append((out_dev, metas,
+                              None if posed is None else posed[lanes]))
         return entry
 
     def _fetch(self, entry) -> list:
@@ -287,15 +308,37 @@ class MultiStreamTracker:
         copy per output tensor of each device group, then numpy slices per
         lane."""
         results = []
-        for out_dev, metas in entry:
-            host = self.tracker.to_host((*out_dev, None))
-            for sid, lane, start, skip in metas:
-                out = {k: v[lane] for k, v in host.items()}
-                tracks = [tracks_of_frame(out, t)
-                          for t in range(skip, out["valid"].shape[0])]
-                self._record_latency(sid, len(tracks))
-                results.append((sid, start, tracks))
+        with profiling.span("serving.fetch"):
+            for out_dev, metas, posed in entry:
+                host = self.tracker.to_host(out_dev)
+                stages = self.tracker.stage_seconds(out_dev)
+                with profiling.span("serving.emit"):
+                    for sid, lane, start, skip in metas:
+                        out = {k: v[lane] for k, v in host.items()}
+                        tracks = [tracks_of_frame(out, t)
+                                  for t in range(skip, out["valid"].shape[0])]
+                        self._record_latency(sid, len(tracks))
+                        results.append((sid, start, tracks))
+                self._count(host, metas, posed, stages)
         return results
+
+    def _count(self, host, metas, posed, stages) -> None:
+        """A fetched batch's pose rows, run and useful, and its stages'
+        device seconds and new frames (the module docstring's counters)."""
+        c, f = host["valid"].shape[:2]
+        if posed is not None:
+            p = self.max_persons
+            flips = 2 if self.tracker.cfg.test.flip_test else 1
+            useful = sum(int(posed[lane, skip:].sum())
+                         + int(host["valid"][lane, skip:, p:].sum())
+                         for _, lane, _, skip in metas)
+            profiling.count("pose.forwards", self.tracker.pose_rows(c, f))
+            profiling.count("pose.useful", flips * useful)
+        if stages is not None:
+            for name, seconds in stages.items():
+                profiling.add(f"device.clip.{name}", seconds)
+            profiling.count("device.frames",
+                            sum(f - skip for _, _, _, skip in metas))
 
     def step(self, force: bool = False):
         """Track up to ``batch_streams`` ready clips in one device call.

@@ -41,7 +41,11 @@ again after the nets' tensors changed (a net moved, loaded or replaced).
 On the CPU ``_clip`` runs eagerly; the eager ``_clip`` is the graph's
 plain version. Each stage runs in a ``torch.profiler.record_function``
 range named ``clip.<stage>``, which a profile of the eager ``_clip`` shows
-(a replayed graph has no host ranges).
+(a replayed graph has no host ranges). With tracing on
+(``utils/profiling.enable``) ``_clip`` also stamps the device's clock at its
+start, after each stage and at its end, into a buffer it returns as a
+seventh output, so each replay's stage times come back with its outputs
+(``stage_seconds``); off, it captures no stamp and returns six.
 
 Over a mesh of devices (``parallel/mesh.py``): ``track_clips(sharding=)``
 splits the lanes into one group per mesh slot, each run by this tracker's
@@ -93,6 +97,7 @@ from flowtrack_tpu_torch.tracking.tracker import (
     greedy_match,
     propagate_poses,
 )
+from flowtrack_tpu_torch.utils import profiling
 from flowtrack_tpu_torch.utils.graphs import GraphCache, net_state, state_key
 
 
@@ -180,6 +185,12 @@ class ClipTracker:
     full-resolution flow in pixels (N, 2, H, W) of the FlowNet2 cascades.
     Both are put on ``device`` in eval mode."""
 
+    # the intervals between the clip program's seven stamps, in order: its
+    # four stages (the recovery's scan and pose pass apart) and the next
+    # clip's seed
+    STAGES = ("flow", "pose", "recovery_scan", "recovery_pose", "id_scan",
+              "seed")
+
     def __init__(self, cfg: Config, pose_model, flow_model,
                  max_persons: Optional[int] = None, device="cuda"):
         device = model_device(device)
@@ -245,8 +256,23 @@ class ClipTracker:
                            out_dtype=self.crop_dtype)
 
     # ---- stage 3: detector-miss recovery
+    def recovery_budget(self, f: int) -> int:
+        """The recovered boxes a lane of an ``f``-frame clip poses (the
+        second pose pass's rows per lane)."""
+        r, share = self.cfg.track.max_recovered, self.cfg.track.recover_budget
+        return min(f * r, max(r, int(np.ceil(f * share))))
+
+    def pose_rows(self, c: int, f: int) -> int:
+        """The crops both pose passes of ``c`` lanes of ``f`` frames run
+        through the pose net, the flip test's second half included: every
+        detector slot, padded or not, and each lane's recovery budget."""
+        rows = c * f * self.max_persons
+        if self.recover:
+            rows += c * self.recovery_budget(f)
+        return rows * (2 if self.cfg.test.flip_test else 1)
+
     def _recovery_pass(self, frames, preds, valid, scores, det_boxes, flows,
-                       frame_valid, real_frames, seed):
+                       frame_valid, real_frames, seed, stamps=None):
         """Emit flow-propagated boxes for OKS-unmatched tracks, pose each
         lane's clip-wide top-budget boxes (one crop launch and one pose
         batch for all lanes), scatter them back to the (C, F, R) recovery
@@ -259,7 +285,7 @@ class ClipTracker:
         c, f, p = valid.shape
         r = tcfg.max_recovered
         t_slots = p + r
-        budget = min(f * r, max(r, int(np.ceil(f * tcfg.recover_budget))))
+        budget = self.recovery_budget(f)
         neg = float("-inf")
         slot_ids = torch.arange(t_slots, device=dev)
         zero_ages = torch.zeros((c, p), dtype=torch.int32, device=dev)
@@ -299,6 +325,7 @@ class ClipTracker:
                 outs.append(out_t)
             rec_box, rec_v, rec_s, rec_ages = (torch.stack(x, 1)
                                                for x in zip(*outs))
+        profiling.stamp(stamps, 3)
 
         # each lane's clip-wide budgeted selection -> one crop launch, one
         # pose batch for all lanes
@@ -413,22 +440,29 @@ class ClipTracker:
         count of clips padded with invalid frames, a device int32
         scalar."""
         c, f, h, w, _ = frames.shape
+        stamps = profiling.stamps(len(self.STAGES) + 1, frames.device)
+        profiling.stamp(stamps, 0)
         # 1. flow on all pairs of all lanes, one call
         flows = self._flow_pass(frames)
+        profiling.stamp(stamps, 1)
         # 2. pose on all detector persons of all frames: one crop launch
         pose = self._pose_pass(frames, centers, scales, det_scores,
                                det_valid)
-        return self._track(frames.reshape(c * f, h, w, 3), flows, *pose,
-                           det_boxes, frame_valid, seed_joints, seed_valid,
-                           seed_scores, seed_ages, seed_ids, next_id0,
-                           real_frames)
+        profiling.stamp(stamps, 2)
+        out = self._track(frames.reshape(c * f, h, w, 3), flows, *pose,
+                          det_boxes, frame_valid, seed_joints, seed_valid,
+                          seed_scores, seed_ages, seed_ids, next_id0,
+                          real_frames, stamps)
+        return out if stamps is None else (*out, stamps)
 
     def _track(self, frames, flows, preds, maxvals, scores, valid, det_boxes,
                frame_valid, seed_joints, seed_valid, seed_scores, seed_ages,
-               seed_ids, next_id0, real_frames=None):
+               seed_ids, next_id0, real_frames=None, stamps=None):
         """Stages 3 and 4 on the flows and the pose pass of C lanes of F
         frames (``frames`` (C*F, H, W, 3)): the recovery scan and its
-        budgeted pose pass, then the id scan; -> ``_clip``'s outputs."""
+        budgeted pose pass, then the id scan; -> ``_clip``'s six outputs.
+        ``stamps``: the clip's stamp buffer (3 to 6 are written here), or
+        None."""
         tcfg = self.cfg.track
         c, f, p = valid.shape
         dev = frames.device
@@ -440,12 +474,16 @@ class ClipTracker:
                         seed_ages.to(torch.int32))
             rec_preds, rec_maxvals, rec_scores, rec_valid, rec_ages = \
                 self._recovery_pass(frames, preds, valid, scores, det_boxes,
-                                    flows, frame_valid, real_frames, rec_seed)
+                                    flows, frame_valid, real_frames, rec_seed,
+                                    stamps)
             preds = torch.cat([preds, rec_preds], dim=2)
             maxvals = torch.cat([maxvals, rec_maxvals], dim=2)
             scores = torch.cat([scores, rec_scores], dim=2)
             valid = torch.cat([valid, rec_valid], dim=2)
             ages = torch.cat([ages, rec_ages], dim=2)
+        else:
+            profiling.stamp(stamps, 3)
+        profiling.stamp(stamps, 4)
 
         # 4. the id chain; frame 0 matches the seed by identity propagation
         thr = tcfg.track_oks_thre
@@ -466,6 +504,7 @@ class ClipTracker:
                                        nid)
                 all_ids.append(ids)
             all_ids = torch.stack(all_ids, 1)
+        profiling.stamp(stamps, 5)
         # the next clip's seed: the last REAL frame's live tracks, gathered
         # at the device scalar real_frames - 1 for a padded clip
         if real_frames is None:
@@ -480,6 +519,7 @@ class ClipTracker:
         seed_out = (at_last(preds), seed_valid_out, at_last(scores),
                     at_last(ages),
                     torch.where(seed_valid_out, at_last(all_ids), 0), nid)
+        profiling.stamp(stamps, 6)
         return preds, maxvals, scores, all_ids, valid, seed_out
 
     def empty_seed(self):
@@ -512,9 +552,24 @@ class ClipTracker:
         tracker's device, one copy per tensor."""
         dtypes = (None, None, None, torch.float32, torch.bool, None,
                   torch.bool)
-        return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                                     device=self.device)
-                     for a, dt in zip(host_args, dtypes))
+        with profiling.span("clip.put_lanes"):
+            return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                         device=self.device)
+                         for a, dt in zip(host_args, dtypes))
+
+    def keyframe_valid(self, det_valid: np.ndarray,
+                       frame_offsets: Optional[Sequence[int]] = None):
+        """(C, F, P) ``det_valid`` with the detections of frames off the
+        keyframe cadence (``track.keyframe_interval``, counted from each
+        lane's first global frame ``frame_offsets[i]``) dropped."""
+        k = max(1, self.cfg.track.keyframe_interval)
+        if k == 1:
+            return det_valid
+        c, f = np.shape(det_valid)[:2]
+        offsets = np.asarray(frame_offsets if frame_offsets is not None
+                             else [0] * c)
+        return det_valid & ((np.arange(f) + offsets[:, None])[..., None] % k
+                            == 0)
 
     def host_lanes(self, frames: np.ndarray, det_boxes: np.ndarray,
                    det_scores: np.ndarray, det_valid: np.ndarray,
@@ -523,29 +578,25 @@ class ClipTracker:
         """``prepare_lanes``' host half: its seven arguments as numpy
         arrays (frames, centers, scales, det_scores, det_valid, xyxy boxes,
         frame_valid), each with the leading lane axis."""
-        c, f, p = det_scores.shape
-        if frame_valid is None:
-            frame_valid = np.ones((c, f), bool)
-        k = max(1, self.cfg.track.keyframe_interval)
-        if k > 1:
-            offsets = np.asarray(frame_offsets if frame_offsets is not None
-                                 else [0] * c)
-            det_valid = det_valid & (
-                (np.arange(f) + offsets[:, None])[..., None] % k == 0)
-        centers = np.zeros((c * f, p, 2), np.float32)
-        scales = np.full((c * f, p, 2), 1e-3, np.float32)
-        boxes_xyxy = np.zeros((c * f, p, 4), np.float32)
-        for t, boxes in enumerate(np.reshape(det_boxes, (c * f, p, 4))):
-            # clamp only w/h: padded zero boxes would give zero scale
-            boxes_t = np.concatenate(
-                [boxes[:, :2], np.maximum(boxes[:, 2:], 1e-3)], axis=1)
-            centers[t], scales[t] = batched_box_to_center_scale(
-                boxes_t, self.aspect_ratio)
-            boxes_xyxy[t] = np.concatenate(
-                [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
-        return (frames, centers.reshape(c, f, p, 2), scales.reshape(c, f, p, 2),
-                det_scores, det_valid, boxes_xyxy.reshape(c, f, p, 4),
-                frame_valid)
+        with profiling.span("clip.host_lanes"):
+            c, f, p = det_scores.shape
+            if frame_valid is None:
+                frame_valid = np.ones((c, f), bool)
+            det_valid = self.keyframe_valid(det_valid, frame_offsets)
+            centers = np.zeros((c * f, p, 2), np.float32)
+            scales = np.full((c * f, p, 2), 1e-3, np.float32)
+            boxes_xyxy = np.zeros((c * f, p, 4), np.float32)
+            for t, boxes in enumerate(np.reshape(det_boxes, (c * f, p, 4))):
+                # clamp only w/h: padded zero boxes would give zero scale
+                boxes_t = np.concatenate(
+                    [boxes[:, :2], np.maximum(boxes[:, 2:], 1e-3)], axis=1)
+                centers[t], scales[t] = batched_box_to_center_scale(
+                    boxes_t, self.aspect_ratio)
+                boxes_xyxy[t] = np.concatenate(
+                    [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
+            return (frames, centers.reshape(c, f, p, 2),
+                    scales.reshape(c, f, p, 2), det_scores, det_valid,
+                    boxes_xyxy.reshape(c, f, p, 4), frame_valid)
 
     def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
                 det_scores: np.ndarray, det_valid: np.ndarray,
@@ -563,10 +614,11 @@ class ClipTracker:
 
     def graph_key(self, device_args, budget_frames) -> tuple:
         """The geometry of a run: lanes C, frames F, persons P, frame H and
-        W, the frames' dtype, and whether the clips are padded."""
+        W, the frames' dtype, whether the clips are padded, and whether
+        tracing stamps the stages."""
         frames = device_args[0]
         return (*frames.shape[:4], device_args[1].shape[2], frames.dtype,
-                budget_frames is not None)
+                budget_frames is not None, profiling.enabled())
 
     @torch.inference_mode()
     def run_prepared_lanes(self, device_args, seeds: Optional[Sequence] = None,
@@ -580,24 +632,26 @@ class ClipTracker:
         elsewhere it runs ``_clip`` eagerly. Returns device tensors (preds,
         maxvals, scores, ids, valid, seed_out), each with a leading C, that
         no later run overwrites; ``tuple(leaf[i] for leaf in seed_out)``
-        seeds lane i's next (one-frame-overlapping) clip."""
-        empty = self.empty_seed()
-        seeds = [empty if s is None else s
-                 for s in (seeds or [None] * device_args[0].shape[0])]
-        seed = [torch.stack(leaves) for leaves in zip(*seeds)]
-        args = (*device_args, *seed)
-        real = None if budget_frames is None else real_frames_scalar(
-            budget_frames, device_args[0].shape[1], self.device)
-        if real is None:
-            clip = self._clip
-        else:
-            args = (*args, real)
+        seeds lane i's next (one-frame-overlapping) clip. With tracing on,
+        the run's stamps follow as a seventh (``stage_seconds``)."""
+        with profiling.span("clip.replay"):
+            empty = self.empty_seed()
+            seeds = [empty if s is None else s
+                     for s in (seeds or [None] * device_args[0].shape[0])]
+            seed = [torch.stack(leaves) for leaves in zip(*seeds)]
+            args = (*device_args, *seed)
+            real = None if budget_frames is None else real_frames_scalar(
+                budget_frames, device_args[0].shape[1], self.device)
+            if real is None:
+                clip = self._clip
+            else:
+                args = (*args, real)
 
-            def clip(*a):
-                return self._clip(*a[:-1], real_frames=a[-1])
-        return self.graphs.run(
-            self.graph_key(device_args, budget_frames), clip, args,
-            lambda: net_state(self.pose_model, self.flow_model))
+                def clip(*a):
+                    return self._clip(*a[:-1], real_frames=a[-1])
+            return self.graphs.run(
+                self.graph_key(device_args, budget_frames), clip, args,
+                lambda: net_state(self.pose_model, self.flow_model))
 
     def run_prepared(self, device_args, budget_frames: Optional[int] = None,
                      seed=None):
@@ -610,14 +664,27 @@ class ClipTracker:
     @staticmethod
     def to_host(device_out):
         """Device result -> dict of numpy arrays (ids -1 where invalid), one
-        copy to the host per output tensor; any leading lane axis stays."""
-        preds, maxvals, scores, ids, valid, _seed = device_out
-        valid = valid.cpu().numpy()
-        return {"joints": preds.cpu().numpy(),
-                "maxvals": maxvals.cpu().numpy(),
-                "scores": scores.cpu().numpy(),
-                "ids": np.where(valid, ids.cpu().numpy(), -1),
-                "valid": valid}
+        copy to the host per output tensor; any leading lane axis stays.
+        The seed and any stamps are left on the device."""
+        with profiling.span("clip.to_host"):
+            preds, maxvals, scores, ids, valid = device_out[:5]
+            valid = valid.cpu().numpy()
+            return {"joints": preds.cpu().numpy(),
+                    "maxvals": maxvals.cpu().numpy(),
+                    "scores": scores.cpu().numpy(),
+                    "ids": np.where(valid, ids.cpu().numpy(), -1),
+                    "valid": valid}
+
+    @classmethod
+    def stage_seconds(cls, device_out) -> Optional[dict]:
+        """The device seconds of each of ``STAGES`` in a run with tracing on
+        (the differences of its stamps, fetched to the host), or None for a
+        run without stamps."""
+        if len(device_out) <= 6:
+            return None
+        with profiling.span("clip.to_host"):
+            ns = device_out[6].cpu().numpy()
+        return dict(zip(cls.STAGES, np.diff(ns) / 1e9))
 
     def track_clips(self, frames: np.ndarray, det_boxes: np.ndarray,
                     det_scores: np.ndarray, det_valid: np.ndarray,

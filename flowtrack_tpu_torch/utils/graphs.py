@@ -18,7 +18,10 @@ one CUDA graph per shape and replays it:
   pool that a cache's graphs share; ``run`` replays and returns clones of
   the outputs (the next replay overwrites them), in ``fn``'s structure.
   ``capture_ms`` and ``pool_bytes`` (what the pool grew by) say what the
-  capture cost. A capture that fails raises: there is no eager fallback.
+  capture cost; with tracing on (``utils/profiling``) the warm-up (or the
+  wait for the caller's) and the capture are the spans ``graphs.warmup``
+  and ``graphs.capture``, and ``graphs.captures`` counts them. A capture
+  that fails raises: there is no eager fallback.
 * ``GraphCache``: a dict of graphs by key (the program's shapes), all
   captured while the state they read beside their inputs (a net's
   parameters and buffers, an optimizer's moments and rate: ``net_state``)
@@ -47,6 +50,8 @@ from typing import Callable, Sequence
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from flowtrack_tpu_torch.utils import profiling
 
 
 def net_state(*nets) -> list:
@@ -138,21 +143,24 @@ class Graph:
     def _capture(self, fn, args, pool, stream, warmup):
         dev = self.device
         self.inputs = [a.clone() for a in args]
-        if warmup:
-            with self.warming(stream, dev):
-                fn(*self.inputs)
-        stream.synchronize()
-        # torch.cuda.graph empties the allocator's cache on entry; doing it
-        # first leaves what the capture reserves as the pool's growth
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            out = fn(*self.inputs)
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with profiling.span("graphs.warmup"):
+            if warmup:
+                with self.warming(stream, dev):
+                    fn(*self.inputs)
+            stream.synchronize()
+        with profiling.span("graphs.capture"):
+            # torch.cuda.graph empties the allocator's cache on entry; doing
+            # it first leaves what the capture reserves as the pool's growth
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+                out = fn(*self.inputs)
+            torch.cuda.synchronize(dev)
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count("graphs.captures")
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.outputs, self._spec = tree_flatten(out)
 

@@ -8,19 +8,27 @@ the same inputs: every emitted frame's tracks in the same order with the
 same ids, joints within 1e-3 px, maxvals and scores within 1e-5 relative.
 Each test also keeps the reference test's own assertions (exactly-once
 emission, the pipelined step's lag, latency accounting, submit
-validation).
+validation). The last tests hold the program's tracing
+(``utils/profiling``) on the same stubs: off it records nothing and
+changes no output; on, the same tracks, the stage stamps, the spans and
+the pose counters against a hand count.
 """
 
 import functools
 
 import numpy as np
+import torch
 import pytest
 
 from flowtrack_tpu.serving import MultiStreamTracker as JMultiStreamTracker
 from flowtrack_tpu.tracking.clip_pipeline import ClipTracker as JClipTracker
 from flowtrack_tpu.utils.video import track_video_clips as j_track_video_clips
 from flowtrack_tpu_torch.serving import MultiStreamTracker, StreamingClipTracker
-from flowtrack_tpu_torch.tracking.clip_pipeline import ClipTracker
+from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
+                                                        pad_detections)
+from flowtrack_tpu_torch.utils import graphs as graphs_mod
+from flowtrack_tpu_torch.utils import profiling
+from flowtrack_tpu_torch.utils.graphs import GraphCache
 from tests.test_clip_pipeline import StubFlow, StubPose, make_cfg
 from tests.test_serving import CLIP, H, W, scenario_a, scenario_b
 from tests.test_torch_clip_scenarios import StubFlowTorch, StubPoseTorch
@@ -266,3 +274,145 @@ def test_streaming_single_frame_flush():
     assert [idx for idx, _ in out] == [0] and len(out[0][1]) >= 1
     assert_frames_equal([out[0][1]],
                         reference_stream(fa[:1], ba[:1], sa[:1], clip_len=2))
+
+
+def _two_streams(tracker, n=7):
+    """Streams A and B of ``n`` frames, batched in two-lane 4-frame clips
+    (7 frames: two clips each, the second with its overlap frame
+    skipped), at pipeline depth 0; the emissions in order."""
+    fa, ba, sa = scenario_a(n)
+    fb, bb, sb = scenario_b(n)
+    mst = MultiStreamTracker(tracker, clip_len=CLIP, batch_streams=2)
+    emitted = []
+    for t in range(n):
+        mst.submit("A", fa[t], ba[t], sa[t])
+        mst.submit("B", fb[t], bb[t], sb[t])
+        emitted += mst.step()
+    return emitted + mst.flush()
+
+
+def _grown(before):
+    after = profiling.snapshot()
+    return {k: {"total_s": v["total_s"] - before.get(k, {}).get("total_s", 0),
+                "count": v["count"] - before.get(k, {}).get("count", 0)}
+            for k, v in after.items() if v != before.get(k)}
+
+
+def _one_batch(tracker):
+    fa, ba, sa = scenario_a(CLIP)
+    fb, bb, sb = scenario_b(CLIP)
+    dets = [pad_detections(b, s, tracker.max_persons)
+            for b, s in ((ba, sa), (bb, sb))]
+    return tracker.prepare_lanes(np.stack([fa, fb]),
+                                 *(np.stack(x) for x in zip(*dets)))
+
+
+@pytest.fixture
+def tracing():
+    profiling.enable()
+    yield
+    profiling.disable()
+
+
+def test_tracing_off_records_nothing_and_keeps_six_outputs(monkeypatch):
+    """With tracing off a serving run enters no span of the program and
+    records nothing, and the clip program returns its six outputs."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    tracker = port_tracker()
+    before = profiling.snapshot()
+    assert sum(len(fr) for _, _, tr in _two_streams(tracker) for fr in tr)
+    assert len(tracker.run_prepared_lanes(_one_batch(tracker))) == 6
+    assert profiling.snapshot() == before
+
+
+def test_tracing_on_gives_the_same_tracks_and_counts_the_work(tracing):
+    """Tracing on: the emissions equal tracing off's bit for bit; the
+    clip returns its seven stamps in order, whose stages add up to end
+    minus start; the serving spans nest; the pose counters equal a hand
+    count of the planted detections (A: 6 reported and the 1 recovered at
+    its missed frame 3; B: 12) against every row both pose passes ran (2
+    batches of 2 lanes x 4 frames x 4 slots plus 4 recovered a lane,
+    no flip test); the new frames are 4 + 3 a lane."""
+    tracker = port_tracker()
+    profiling.disable()
+    off = _two_streams(tracker)
+    profiling.enable()
+    before = profiling.snapshot()
+    on = _two_streams(tracker)
+    grown = _grown(before)
+    assert [(s, f, len(tr)) for s, f, tr in on] == \
+        [(s, f, len(tr)) for s, f, tr in off]
+    for (_, _, a), (_, _, b) in zip(off, on):
+        for fa, fb in zip(a, b):
+            assert [x["track_id"] for x in fa] == [x["track_id"] for x in fb]
+            for x, y in zip(fa, fb):
+                assert np.array_equal(x["joints"], y["joints"])
+                assert np.array_equal(x["maxvals"], y["maxvals"])
+                assert x["score"] == y["score"]
+    emitted = sum(len(fr) for _, _, tr in on for fr in tr)
+    assert emitted == 19
+    assert grown["pose.useful"]["count"] == 19
+    assert grown["pose.forwards"]["count"] == 2 * (2 * 4 * 4 + 2 * 4) == 80
+    assert grown["device.frames"]["count"] == 2 * (4 + 3)
+    for name in ("serving.dispatch", "serving.fetch", "serving.stack",
+                 "serving.emit", "clip.host_lanes", "clip.put_lanes",
+                 "clip.replay"):
+        assert grown[name]["count"] == 2, name
+    inner = sum(grown[k]["total_s"] for k in (
+        "serving.stack", "clip.host_lanes", "clip.put_lanes", "clip.replay"))
+    assert grown["serving.dispatch"]["total_s"] >= inner
+    assert grown["serving.fetch"]["total_s"] >= (
+        grown["clip.to_host"]["total_s"] + grown["serving.emit"]["total_s"])
+
+    out = tracker.run_prepared_lanes(_one_batch(tracker))
+    assert len(out) == 7
+    stamps = out[6].numpy()
+    assert stamps.shape == (7,) and (np.diff(stamps) >= 0).all()
+    stages = tracker.stage_seconds(out)
+    assert list(stages) == list(ClipTracker.STAGES)
+    assert sum(stages.values()) == pytest.approx(
+        (stamps[-1] - stamps[0]) / 1e9)
+
+
+class _RecordedGraph:
+    """``Graph`` on the CPU: the capture records the program, a replay
+    runs it on the filled inputs."""
+
+    def __init__(self, fn, args, state, pool, stream, warmup=True):
+        self.fn, self.inputs = fn, [a.clone() for a in args]
+
+    @staticmethod
+    def resources(device):
+        return None, None
+
+    def run(self, args):
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        return self.fn(*self.inputs)
+
+
+def test_the_switch_is_part_of_the_graph_key(monkeypatch):
+    """On the card's route (a recording stand-in for the graph) turning
+    tracing on captures a second graph, whose replays return the stamps,
+    and turning it off replays the first again."""
+    monkeypatch.setattr(GraphCache, "on_card", staticmethod(lambda t: True))
+    monkeypatch.setattr(graphs_mod, "Graph", _RecordedGraph)
+    tracker = ClipTracker(port_tracker().cfg, StubPoseTorch(),
+                          StubFlowTorch(), device="cpu")
+    args = _one_batch(tracker)
+    off_key = tracker.graph_key(args, None)
+    want = tracker.run_prepared_lanes(args)
+    profiling.enable()
+    try:
+        on_key = tracker.graph_key(args, None)
+        traced = tracker.run_prepared_lanes(args)
+    finally:
+        profiling.disable()
+    again = tracker.run_prepared_lanes(args)
+    assert off_key != on_key and set(tracker.graphs) == {off_key, on_key}
+    assert (len(want), len(traced), len(again)) == (6, 7, 6)
+    for a, b in zip(want[:5], traced[:5]):
+        assert torch.equal(a, b)
