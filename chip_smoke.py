@@ -57,7 +57,10 @@ evaluators behind them. Phases that each print one or more lines:
      to the eager run's; then one clip under
      torch.profiler on each route (the graph's device busy and idle share,
      host syncs, each kernel's device time; the eager route's time per
-     clip.* stage);
+     clip.* stage); ``[graph]`` then a sparse batch (4 lanes of 16 720x1280
+     frames, 32 slots, 2-6 persons a frame) posed at its bucket of 8 slots
+     against its twin posing all 32: equal with the nets at fixed batches,
+     K1's crops per launch from a replay's trace, replay ms in turns;
   5. flownet2: the same for slice 2 on 360x640 frames (the flow net runs at
      the /64-rounded 384x640, its fused flow shrinks back through the
      antialiased resize); the crop, correlation and warp kernels must all
@@ -227,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -316,6 +320,11 @@ PLANTED_VEL = (3.0, 1.5)
 # tests' joint tolerance; card against CPU: the planted-pose phase's
 SAME_DEVICE_JOINT_TOL = 1e-3
 CPU_JOINT_TOL = 0.5
+# the pose-bucket check: the benchmark's frame size, and the crops a pose
+# call of its chunked nets (a divisor of both routes' pose batches and the
+# recovery pass's 64 crops)
+BUCKET_FRAME_HW = (720, 1280)
+POSE_BUCKET_CHUNK = 64
 # the run's headline numbers, printed again on one short line near the end
 SUMMARY: dict = {}
 
@@ -1439,9 +1448,123 @@ def slice_config():
 
 
 def phase_slice(card):
-    """Slice 1: R50 256x192 + FlowNetC, bf16, flip test, recovery."""
-    return drive_path("slice", card, slice_config(), (FRAME_H, FRAME_W),
-                      ("crop_resize_normalize", "correlation"))
+    """Slice 1: R50 256x192 + FlowNetC, bf16, flip test, recovery; then
+    its pose pass at the bucket of a sparse batch (``check_pose_buckets``)."""
+    launches = drive_path("slice", card, slice_config(), (FRAME_H, FRAME_W),
+                          ("crop_resize_normalize", "correlation"))
+    torch.cuda.synchronize()
+    gc.collect()   # the slice's tracker and its graph pool
+    torch.cuda.empty_cache()
+    check_pose_buckets(f"'{card}'")
+    return launches
+
+
+def crop_counts(prof) -> list:
+    """The crops of each K1 launch in a profile, in order: the x extent of
+    ``crop_band_kernel``'s grid (a block column a crop), from the trace's
+    kernel records, which a replayed graph's kernels have too."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and KERNEL_FUNCTIONS["crop_resize_normalize"].search(
+                          e.get("name", ""))), key=lambda e: e["ts"])
+    return [e["args"]["grid"][0] for e in kernels]
+
+
+def check_pose_buckets(card_f) -> dict:
+    """The clip's first pose pass at the bucket of a sparse batch (4 lanes
+    of 16 frames of 720x1280, 32 person slots, 2-6 persons a frame: 8
+    slots a frame), slice 1's nets with every candidate kept, against its
+    twin made to pose all 32
+    (``prepare_lanes(..., slots=32)``), both replayed as graphs. With the
+    nets called in chunks of POSE_BUCKET_CHUNK crops (the same batches on
+    both routes), ids, valid masks and seeds equal bit for bit and joints,
+    maxvals and scores within SAME_DEVICE_JOINT_TOL; on the path (one pose
+    call a pass) the divergence is logged. Each route's K1 crops per
+    launch read from one replay's trace (C*F*Pb, then C times the recovery
+    budget), and each replay's device ms by CUDA events in turns (bucket,
+    all, all, bucket; CLIPS replays each)."""
+    from flowtrack_tpu_torch.models.flownet import get_flow_net
+    from flowtrack_tpu_torch.models.pose_resnet import get_pose_net
+    from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
+                                                            pad_detections)
+
+    c, f, p, (h, w) = 4, FRAMES, 32, BUCKET_FRAME_HW
+    cfg = slice_config()
+    # every candidate kept, so that the scans have tracks to carry
+    cfg = replace(cfg, track=replace(cfg.track, max_persons=p,
+                                     pose_score_thre=0.0))
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    tracker = ClipTracker(cfg, get_pose_net(cfg.model, dev, gen),
+                          get_flow_net(cfg.flow, dev, gen), device=dev)
+    exact = ClipTracker(
+        replace(cfg, track=replace(cfg.track, pose_chunk=POSE_BUCKET_CHUNK)),
+        tracker.pose_model, tracker.flow_model, device=dev)
+    rng = np.random.default_rng(SEED + 17)
+    video = rng.integers(0, 256, (c, f, h, w, 3), np.uint8)
+    lanes = []
+    for _ in range(c):
+        boxes, scores, _ = video_detections(rng, f, 6, h, w, (2.0, 1.0))
+        n = rng.integers(2, 7, f)
+        lanes.append(pad_detections([b[:k] for b, k in zip(boxes, n)],
+                                    [s[:k] for s, k in zip(scores, n)], p))
+    host = (video, *(np.stack(x) for x in zip(*lanes)))
+    routes = {}
+    for trk in (tracker, exact):
+        routes[trk] = {"bucket": trk.prepare_lanes(*host),
+                       "all": trk.prepare_lanes(*host, slots=p)}
+    args = routes[tracker]
+    require(args["bucket"][1].shape[2] == 8 and args["all"][1].shape[2] == p,
+            f"pose slots {args['bucket'][1].shape} / {args['all'][1].shape}")
+    out = {trk: {k: trk.run_prepared_lanes(a) for k, a in r.items()}
+           for trk, r in routes.items()}
+    torch.cuda.synchronize()
+    got, want = out[exact]["bucket"], out[exact]["all"]
+    diffs = same_routes("pose bucket (chunked nets)", got, want,
+                        SAME_DEVICE_JOINT_TOL)
+    require(got[4].any(), "pose bucket: no valid slot")
+    got, want = out[tracker]["bucket"], out[tracker]["all"]
+    path = {"ids_equal": bool(torch.equal(got[3], want[3])),
+            "valid_equal": bool(torch.equal(got[4], want[4])),
+            **{name: (a.double() - b.double()).abs().max().item()
+               for name, a, b in zip(("joints", "maxvals", "scores"),
+                                     got[:3], want[:3])}}
+    budget = tracker.recovery_budget(f)
+    crops = {}
+    for name, a in args.items():
+        prof, _, _ = profile_run(f"pose_bucket_{name}",
+                                 lambda a=a: tracker.run_prepared_lanes(a))
+        crops[name] = crop_counts(prof)
+        want_crops = [c * f * a[1].shape[2], c * budget]
+        require(crops[name] == want_crops,
+                f"pose bucket {name}: K1 crops {crops[name]}, want "
+                f"{want_crops}")
+    ms = {"bucket": [], "all": []}
+    for name in ("bucket", "all", "all", "bucket"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(CLIPS):
+            tracker.run_prepared_lanes(args[name])
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / CLIPS)
+    SUMMARY["pose_bucket_replay_ms"] = {k: [round(x, 2) for x in v]
+                                        for k, v in ms.items()}
+    fields = {"lanes": c, "frames_per_clip": f, "frame_hw": f"{h}x{w}",
+              "max_persons": p, "slots": args["bucket"][1].shape[2],
+              "persons_a_frame": "2-6", "k1_crops": crops,
+              "max_abs_diff_chunked": diffs, "path": path,
+              "replay_ms": ms, "card": card_f}
+    log("graph", check="pose bucket against every slot", **fields)
+    return fields
 
 
 def flownet2_config():

@@ -11,6 +11,9 @@ serving process loads and calls without the tracker's Python.
   artifact serves any weights of the same architecture and holds none.
 * Shapes are static: one artifact per (clip length, frame H x W, person
   padding, optional stream count) geometry; a call of another shape raises.
+  The pose pass runs every person slot: prepare a call's arguments with
+  ``ClipTracker.prepare(..., slots=max_persons)``, not at the bucket of
+  the clip's boxes.
 * The port's kernels appear in the program as their custom ops
   (``torch.ops.flowtrack.crop_frames``, ``correlation``, ``resample2d``,
   ``fused_stage``), not as their plain versions: an artifact exported on
@@ -79,7 +82,8 @@ def clip_arg_specs(tracker, clip_len: int, frame_hw: Tuple[int, int],
     leaves), the prepared args from running the real ``prepare`` (or
     ``prepare_lanes``) on zero inputs, so that padding and layout cannot
     drift from production; the person padding is the tracker's own
-    ``max_persons``."""
+    ``max_persons``, for the pose pass too (``slots``): a program takes any
+    count of persons, so its callers prepare with ``slots=max_persons``."""
     h, w = frame_hw
     p = tracker.max_persons
     c = 1 if streams is None else streams
@@ -88,7 +92,8 @@ def clip_arg_specs(tracker, clip_len: int, frame_hw: Tuple[int, int],
                     (c, clip_len, p, 1))
     prepared = tracker.prepare_lanes(frames, boxes,
                                      np.zeros((c, clip_len, p), np.float32),
-                                     np.ones((c, clip_len, p), bool))
+                                     np.ones((c, clip_len, p), bool),
+                                     slots=p)
     seed = [s.expand(c, *s.shape) for s in tracker.empty_seed()]
     if streams is None:
         prepared = [a[0] for a in prepared]

@@ -52,6 +52,7 @@ import numpy as np
 from flowtrack_tpu_torch.parallel.mesh import NamedSharding
 from flowtrack_tpu_torch.tracking.clip_pipeline import (ClipTracker,
                                                         pad_detections,
+                                                        pose_slots,
                                                         slot_device, seed_to)
 from flowtrack_tpu_torch.utils import profiling
 from flowtrack_tpu_torch.utils.video import pad_tail_clip
@@ -299,8 +300,11 @@ class MultiStreamTracker:
                     # per-lane seed slices stay on the lane's device
                     self._seed[sid] = tuple(leaf[lane] for leaf in out_dev[5])
                     metas.append((sid, lane) + self._advance(sid))
-                entry.append((out_dev, metas,
-                              None if posed is None else posed[lanes]))
+                # and the rows the group's pose passes ran, at its bucket
+                entry.append((out_dev, metas, None if posed is None else (
+                    posed[lanes], self.tracker.pose_rows(
+                        len(metas), self.clip_len,
+                        pose_slots(host[1][lanes], self.max_persons)))))
         return entry
 
     def _fetch(self, entry) -> list:
@@ -324,15 +328,18 @@ class MultiStreamTracker:
 
     def _count(self, host, metas, posed, stages) -> None:
         """A fetched batch's pose rows, run and useful, and its stages'
-        device seconds and new frames (the module docstring's counters)."""
-        c, f = host["valid"].shape[:2]
+        device seconds and new frames (the module docstring's counters).
+        ``posed``: the batch's reported detections (C, F, P) and the rows
+        its pose passes ran, or None."""
+        f = host["valid"].shape[1]
         if posed is not None:
+            posed, rows = posed
             p = self.max_persons
             flips = 2 if self.tracker.cfg.test.flip_test else 1
             useful = sum(int(posed[lane, skip:].sum())
                          + int(host["valid"][lane, skip:, p:].sum())
                          for _, lane, _, skip in metas)
-            profiling.count("pose.forwards", self.tracker.pose_rows(c, f))
+            profiling.count("pose.forwards", rows)
             profiling.count("pose.useful", flips * useful)
         if stages is not None:
             for name, seconds in stages.items():

@@ -9,8 +9,11 @@ reference's module docstring describes the algorithm; in short, per clip of
 F frames with P detector slots:
 
   1. FlowNet on all F-1 frame pairs in one batched call;
-  2. one crop launch (kernel K1) for all F*P detections, pose with the
-     flip-test double batch, flip merge, decode and rescore;
+  2. one crop launch (kernel K1) for the first Pb detector slots of every
+     frame (``pose_slots``: the smallest of 8, 16, 32, ... above the
+     batch's last occupied slot, at most P), pose with the flip-test double
+     batch, flip merge, decode and rescore; the padded slots past Pb take
+     the poses of slot Pb-1, whose zero box they share;
   3. detector-miss recovery: a per-frame scan greedy-OKS-matches the
      flow-propagated tracks against the candidates and emits a box for
      every unmatched track (``track.max_recovered`` slots per frame, at
@@ -22,7 +25,7 @@ F frames with P detector slots:
 
 Every clip runs with a leading lane axis C: independent clips (streams) of
 one shape share each call. Flow takes the C*(F-1) in-lane pairs in one
-call, K1 makes all C*F*P crops of a pose pass in one launch, and the two
+call, K1 makes all C*F*Pb crops of a pose pass in one launch, and the two
 per-frame scans carry the C lanes in each step, so their launches per
 lane-frame fall by C. The recovery budget and its top-k are per lane; no
 pair, match or id crosses lanes. One clip is the case C = 1.
@@ -35,9 +38,10 @@ device int32 scalar, as the reference's traced argument is. So on a CUDA
 device ``run_prepared_lanes`` replays it as one CUDA graph, the
 counterpart of the reference's ``jax.jit(clip_fn)`` (:441) and its vmapped
 ``_clips_fn`` (:445): one ``utils/graphs.Graph`` per geometry (lanes,
-frames, persons, frame size, the frames' dtype, padded or not), captured at
-first use into the tracker's one memory pool (``GraphCache``), and captured
-again after the nets' tensors changed (a net moved, loaded or replaced).
+frames, the first pose pass's bucket Pb, frame size, the frames' dtype,
+padded or not), captured at first use into the tracker's one memory pool
+(``GraphCache``), and captured again after the nets' tensors changed (a net
+moved, loaded or replaced).
 On the CPU ``_clip`` runs eagerly; the eager ``_clip`` is the graph's
 plain version. Each stage runs in a ``torch.profiler.record_function``
 range named ``clip.<stage>``, which a profile of the eager ``_clip`` shows
@@ -175,6 +179,28 @@ def real_frames_scalar(budget_frames: int, f: int, device):
     return torch.full((), budget_frames, dtype=torch.int32, device=device)
 
 
+# the smallest bucket of the first pose pass's slots a frame; the buckets
+# double from it up to ``max_persons``
+POSE_BUCKET = 8
+
+
+def pose_slots(det_boxes: np.ndarray, max_persons: int) -> int:
+    """The detector slots a frame that the first pose pass runs for the
+    boxes (..., P, 4) of a batch, P = ``max_persons``: the smallest of
+    POSE_BUCKET, twice it, four times it, ... that lies above the last slot
+    holding a box other than the zero box in any frame, or P where that
+    bucket is not below P. So every slot from it on holds the zero box,
+    which every frame crops alike; an invalid slot with a real box counts
+    as occupied."""
+    occupied = np.flatnonzero(np.any(
+        np.reshape(det_boxes, (-1, max_persons, 4)) != 0, axis=(0, 2)))
+    used = int(occupied[-1]) + 1 if occupied.size else 0
+    slots = POSE_BUCKET
+    while slots <= used:
+        slots *= 2
+    return min(slots, max_persons)
+
+
 class ClipTracker:
     """Batched-clip FlowTrack on one device. All frames share one (H, W).
 
@@ -240,13 +266,17 @@ class ClipTracker:
                                   self.cfg.test.flip_test,
                                   self.cfg.test.shift_heatmap)
 
-    def _pose_on_crops(self, crops, centers, scales, det_scores):
-        """crops (N, h, w, 3) -> preds (N, K, 2), maxvals (N, K), scores (N,)."""
+    def _poses(self, crops, centers, scales):
+        """crops (N, h, w, 3) -> preds (N, K, 2), maxvals (N, K)."""
         hm = _chunked_apply(self._pose_heatmaps, crops,
                             self.cfg.track.pose_chunk)
-        preds, maxvals = get_final_preds(
+        return get_final_preds(
             hm, centers, scales, post_process=self.cfg.test.post_process,
             blur_kernel=self.cfg.test.blur_kernel)
+
+    def _pose_on_crops(self, crops, centers, scales, det_scores):
+        """crops (N, h, w, 3) -> preds (N, K, 2), maxvals (N, K), scores (N,)."""
+        preds, maxvals = self._poses(crops, centers, scales)
         return preds, maxvals, rescore(det_scores, maxvals,
                                        self.cfg.test.in_vis_thre)
 
@@ -262,11 +292,12 @@ class ClipTracker:
         r, share = self.cfg.track.max_recovered, self.cfg.track.recover_budget
         return min(f * r, max(r, int(np.ceil(f * share))))
 
-    def pose_rows(self, c: int, f: int) -> int:
+    def pose_rows(self, c: int, f: int, slots: int) -> int:
         """The crops both pose passes of ``c`` lanes of ``f`` frames run
-        through the pose net, the flip test's second half included: every
-        detector slot, padded or not, and each lane's recovery budget."""
-        rows = c * f * self.max_persons
+        through the pose net, the flip test's second half included: the
+        first pass's ``slots`` a frame (``pose_slots``), padded or not, and
+        each lane's recovery budget."""
+        rows = c * f * slots
         if self.recover:
             rows += c * self.recovery_budget(f)
         return rows * (2 if self.cfg.test.flip_test else 1)
@@ -411,24 +442,33 @@ class ClipTracker:
                 (c, 0, h, w, 2), device=frames.device)
 
     def _pose_pass(self, frames, centers, scales, det_scores, det_valid):
-        """Stage 2: pose on all detector persons of all frames, one crop
-        launch. frames (C, F, H, W, 3), centers and scales (C, F, P, 2),
-        det_scores and det_valid (C, F, P) -> preds (C, F, P, K, 2),
-        maxvals (C, F, P, K), scores and valid (C, F, P)."""
+        """Stage 2: pose on the first Pb detector slots of every frame, one
+        crop launch. frames (C, F, H, W, 3), centers and scales (C, F, Pb,
+        2), det_scores and det_valid (C, F, P) -> preds (C, F, P, K, 2),
+        maxvals (C, F, P, K), scores and valid (C, F, P). Where Pb < P
+        (``pose_slots``), slots Pb-1 to P-1 all hold the zero box, so slots
+        Pb to P-1 take slot Pb-1's crop's preds and maxvals: what posing
+        them would give."""
         c, f, h, w, _ = frames.shape
-        p = centers.shape[2]
+        pb, p = centers.shape[2], det_valid.shape[2]
         frames = frames.reshape(c * f, h, w, 3)
         with record_function("clip.pose"):
             frame_idx = torch.arange(c * f, device=frames.device)[
-                :, None].expand(c * f, p).reshape(-1)
+                :, None].expand(c * f, pb).reshape(-1)
             centers_flat = centers.reshape(-1, 2)
             scales_flat = scales.reshape(-1, 2)
             crops = self._crop(frames, frame_idx, centers_flat, scales_flat)
-            preds, maxvals, scores = self._pose_on_crops(
-                crops, centers_flat, scales_flat, det_scores.reshape(-1))
-        preds = preds.reshape(c, f, p, -1, 2)
-        maxvals = maxvals.reshape(c, f, p, -1)
-        scores = scores.reshape(c, f, p)
+            preds, maxvals = self._poses(crops, centers_flat, scales_flat)
+            k = preds.shape[1]
+            preds = preds.reshape(c, f, pb, k, 2)
+            maxvals = maxvals.reshape(c, f, pb, k)
+            if pb < p:
+                preds = torch.cat([preds, preds[:, :, -1:].expand(
+                    c, f, p - pb, k, 2)], 2)
+                maxvals = torch.cat([maxvals, maxvals[:, :, -1:].expand(
+                    c, f, p - pb, k)], 2)
+            scores = rescore(det_scores.reshape(-1), maxvals.reshape(-1, k),
+                             self.cfg.test.in_vis_thre).reshape(c, f, p)
         valid = det_valid & (scores >= self.cfg.track.pose_score_thre)
         return preds, maxvals, scores, valid
 
@@ -536,16 +576,18 @@ class ClipTracker:
     def prepare_lanes(self, frames: np.ndarray, det_boxes: np.ndarray,
                       det_scores: np.ndarray, det_valid: np.ndarray,
                       frame_valid: Optional[np.ndarray] = None,
-                      frame_offsets: Optional[Sequence[int]] = None):
+                      frame_offsets: Optional[Sequence[int]] = None,
+                      slots: Optional[int] = None):
         """Host prep of C clips of one shape and one copy to the device per
         tensor: frames (C, F, H, W, 3), det_boxes (C, F, P, 4) xywh,
         det_scores and det_valid (C, F, P), frame_valid (C, F) -> the
         argument tuple of run_prepared_lanes, each tensor with a leading C.
         ``frame_offsets[i]`` is lane i's first global frame index, so
-        keyframe masking follows each video's cadence."""
+        keyframe masking follows each video's cadence. ``slots``: the first
+        pose pass's slots a frame (``host_lanes``)."""
         return self.put_lanes(self.host_lanes(
             frames, det_boxes, det_scores, det_valid, frame_valid,
-            frame_offsets))
+            frame_offsets, slots))
 
     def put_lanes(self, host_args):
         """``host_lanes``' arrays -> run_prepared_lanes' tensors on this
@@ -574,12 +616,24 @@ class ClipTracker:
     def host_lanes(self, frames: np.ndarray, det_boxes: np.ndarray,
                    det_scores: np.ndarray, det_valid: np.ndarray,
                    frame_valid: Optional[np.ndarray] = None,
-                   frame_offsets: Optional[Sequence[int]] = None):
+                   frame_offsets: Optional[Sequence[int]] = None,
+                   slots: Optional[int] = None):
         """``prepare_lanes``' host half: its seven arguments as numpy
         arrays (frames, centers, scales, det_scores, det_valid, xyxy boxes,
-        frame_valid), each with the leading lane axis."""
+        frame_valid), each with the leading lane axis; centers and scales
+        of the first pose pass's ``slots`` a frame, the others of all P.
+        ``slots`` None takes the boxes' bucket (``pose_slots``, counted as
+        ``pose.bucket.<slots>``); an exported program, whose shapes are
+        fixed, takes P (``aot.clip_arg_specs``)."""
         with profiling.span("clip.host_lanes"):
             c, f, p = det_scores.shape
+            need = pose_slots(det_boxes, p)
+            if slots is None:
+                slots = need
+                profiling.count(f"pose.bucket.{slots}")
+            elif not (slots == p or need <= slots < p):
+                raise ValueError(f"{slots} pose slots a frame: the boxes "
+                                 f"need {need} to {p}")
             if frame_valid is None:
                 frame_valid = np.ones((c, f), bool)
             det_valid = self.keyframe_valid(det_valid, frame_offsets)
@@ -594,14 +648,14 @@ class ClipTracker:
                     boxes_t, self.aspect_ratio)
                 boxes_xyxy[t] = np.concatenate(
                     [boxes_t[:, :2], boxes_t[:, :2] + boxes_t[:, 2:]], axis=1)
-            return (frames, centers.reshape(c, f, p, 2),
-                    scales.reshape(c, f, p, 2), det_scores, det_valid,
-                    boxes_xyxy.reshape(c, f, p, 4), frame_valid)
+            return (frames, centers.reshape(c, f, p, 2)[:, :, :slots],
+                    scales.reshape(c, f, p, 2)[:, :, :slots], det_scores,
+                    det_valid, boxes_xyxy.reshape(c, f, p, 4), frame_valid)
 
     def prepare(self, frames: np.ndarray, det_boxes: np.ndarray,
                 det_scores: np.ndarray, det_valid: np.ndarray,
                 frame_valid: Optional[np.ndarray] = None,
-                frame_offset: int = 0):
+                frame_offset: int = 0, slots: Optional[int] = None):
         """``prepare_lanes`` of one clip (frames (F, H, W, 3), det_boxes
         (F, P, 4), ...), without the lane axis: the argument tuple of
         run_prepared."""
@@ -609,13 +663,14 @@ class ClipTracker:
             np.asarray(frames)[None], np.asarray(det_boxes)[None],
             np.asarray(det_scores)[None], np.asarray(det_valid)[None],
             None if frame_valid is None else np.asarray(frame_valid)[None],
-            [frame_offset])
+            [frame_offset], slots)
         return tuple(x[0] for x in lanes)
 
     def graph_key(self, device_args, budget_frames) -> tuple:
-        """The geometry of a run: lanes C, frames F, persons P, frame H and
-        W, the frames' dtype, whether the clips are padded, and whether
-        tracing stamps the stages."""
+        """The geometry of a run: lanes C, frames F, frame H and W, the
+        first pose pass's slots a frame (its bucket), the frames' dtype,
+        whether the clips are padded, and whether tracing stamps the
+        stages."""
         frames = device_args[0]
         return (*frames.shape[:4], device_args[1].shape[2], frames.dtype,
                 budget_frames is not None, profiling.enabled())

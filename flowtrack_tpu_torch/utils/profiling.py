@@ -37,6 +37,8 @@ Names: ``serving.dispatch`` (``serving.stack``, ``clip.host_lanes``,
 ``serving.emit``), ``graphs.warmup``, ``graphs.capture``; counters
 ``graphs.captures``, ``pose.forwards`` and ``pose.useful`` (pose rows run
 and rows that hold a reported person, flip test counted twice),
+``pose.bucket.<Pb>`` (clip batches prepared whose first pose pass runs Pb
+slots a frame, ``ClipTracker.host_lanes``),
 ``device.frames`` (new frames fetched); device seconds
 ``device.clip.<stage>`` from the stamps (``ClipTracker.STAGES``).
 
