@@ -25,7 +25,10 @@ state where the tracker's decisions depend on it:
   posed, which fixes that crop up to whole quarter cells; of the crops on
   that grid within ``SEARCH`` quarter cells of the reference's box, the
   one whose reference heatmaps the slot's joints fit best is taken for
-  the candidate's. ``rec_shift_share``, the share of slots whose crop is
+  the candidate's; crops that the joints fit within ``TIE`` of the best
+  are a tie, which the crop nearest the reference's box wins (a quarter
+  cell moves a heatmap by a quarter of its cell, which the joints' cells
+  often do not show). ``rec_shift_share``, the share of slots whose crop is
   a quarter cell or more away from the reference's box, judges stage 1's
   flow and the propagation; ``rec_joint_gap`` and ``rec_maxval_err``
   judge the pose of the crop as for a detection. ``rec_unlocated`` counts slots
@@ -72,6 +75,10 @@ NUMBERS = ("det_joint_gap", "det_maxval_err", "det_score_err",
 # the relative range of the step searched around the box's; recovered
 # slots posed at once
 SEARCH, SCALE_RANGE, SLOT_BLOCK = 2, 0.03, 32
+# joint gaps (sd) within this of a slot's best fit are a tie: in sound
+# bf16 runs on an H100 a crop a quarter cell off the reference's box fit
+# within 0.022 of the box's own, often both at 0 (PERF.md, section 2)
+TIE = 0.05
 
 
 def _gaps(hm, cells):
@@ -273,6 +280,17 @@ def _grid_of(joints, centers, scales, hm_hw, steps: int = 2001):
     return sol[:, 0, 0], sol[:, 1:, 0], resid
 
 
+def pick_crop(gaps, shifts):
+    """The index of each slot's crop: ``gaps`` (B, S), the widest joint gap
+    of each searched crop, ``shifts`` (S, 2) its distance from the
+    reference's box in quarter cells. The crop the joints fit best; of the
+    crops within ``TIE`` of that fit, the nearest to the box (and of those
+    as near, the better fit)."""
+    near = (shifts ** 2).sum(-1) * 1e6 + gaps
+    tie = gaps <= gaps.amin(1, keepdim=True) + TIE
+    return torch.where(tie, near, math.inf).argmin(1)
+
+
 def _recovered_poses(ref, frames, flows, cand, seed, p, readings):
     """Each recovery slot the candidate reports. Its track is a detection
     (or the seed's track) whose carried score the slot's rescored score
@@ -281,7 +299,8 @@ def _recovered_poses(ref, frames, flows, cand, seed, p, readings):
     The slot's joints give the grid of the crop the candidate posed, up to
     a whole quarter cell (``_grid_of``); the reference poses the crops of
     that grid within ``SEARCH`` quarter cells of its own box each way, and
-    the crop whose heatmaps the slot's joints fit best is the candidate's.
+    the crop whose heatmaps the slot's joints fit best (within ``TIE``,
+    the nearest to its own box) is the candidate's.
     A person whose crops were alike in two frames has the same score in
     both, so every track whose score fits is tried and the nearest grid
     kept."""
@@ -360,7 +379,9 @@ def _recovered_poses(ref, frames, flows, cand, seed, p, readings):
                                 torch.ones(len(ti), device=dev))
         gap, sd = _gaps(hm, ops.heatmap_cell(cj[k].repeat_interleave(ns, 0),
                                              c, s, (h, w)))
-        g, i = gap.amax(-1).reshape(b, ns).min(1)
+        g = gap.amax(-1).reshape(b, ns)
+        i = pick_crop(g, shifts)
+        g = g.gather(1, i[:, None])[:, 0]
         pick = torch.arange(b, device=dev) * ns + i
         cmv = torch.as_tensor(cand["maxvals"][at], device=dev)[k]
         best_gap.append(g)

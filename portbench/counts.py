@@ -13,11 +13,10 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench.reference import nets
+from portbench import spec
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-CORR_CHANNELS = 256     # FlowNetC's conv3 features, which the volume compares
 
 
 def _flops(net, shape) -> int:
@@ -28,51 +27,43 @@ def _flops(net, shape) -> int:
     return counter.get_total_flops()
 
 
-def pose_flops(model: dict) -> int:
-    """Operations of one pose forward of one crop (the flip test makes
-    two)."""
+def _meta(module, config: dict):
     with torch.device("meta"):
-        net = nets.PoseResNet(model["num_layers"], model["num_joints"],
-                              model["num_deconv_filters"],
-                              model["num_deconv_kernels"],
-                              model["final_conv_kernel"])
-    h, w = model["image_size"]
-    return _flops(net, (1, 3, h, w))
+        return module.build(config, "meta")
 
 
-def corr_shape(flow: dict, net_hw) -> tuple:
-    """(C, h, w, D) of FlowNetC's cost volume at a net input of ``net_hw``:
-    conv3's features at an eighth of it."""
-    d = len(range(-flow["corr_max_displacement"],
-                  flow["corr_max_displacement"] + 1, flow["corr_stride2"]))
-    return CORR_CHANNELS, net_hw[0] // 8, net_hw[1] // 8, d
+def pose_flops(config: dict) -> int:
+    """Operations of one pose forward of one crop (the flip test makes
+    two), on the net that the configuration's ``reference`` names."""
+    h, w = config["model"]["image_size"]
+    return _flops(_meta(spec.reference(config, "pose"), config), (1, 3, h, w))
 
 
-def corr_flops(flow: dict, net_hw) -> int:
-    """The cost volume's products and sums for one pair: 2 C D^2 h w."""
-    c, h, w, d = corr_shape(flow, net_hw)
+def flow_flops(config: dict, frame_hw) -> int:
+    """Operations of the flow net on one pair of ``frame_hw`` frames: the
+    net from its own input (``core`` at the module's ``net_input``), plus
+    the operations that the module says the counter does not see."""
+    module = spec.reference(config, "flow")
+    return (_flops(_meta(module, config).core,
+                   module.net_input(config, frame_hw))
+            + module.uncounted_flops(config, frame_hw))
+
+
+def corr_flops(volume) -> int:
+    """The products and sums of one cost volume of shape ``volume``, (C,
+    h, w, D): D^2 displacements at h w positions over C channels,
+    2 C D^2 h w."""
+    c, h, w, d = volume
     return 2 * c * d * d * h * w
 
 
-def flow_flops(flow: dict, net_hw) -> int:
-    """Operations of the flow net on one pair at ``net_hw``: the counted
-    convolutions plus the cost volume, which the counter does not see."""
-    with torch.device("meta"):
-        net = nets.flow_net(flow["variant"], flow["div_flow"],
-                            flow["corr_max_displacement"],
-                            flow["corr_stride2"])
-    has_corr = flow["variant"] in ("flownet_c", "flownet2")
-    return (_flops(net, (1, 6, *net_hw))
-            + (corr_flops(flow, net_hw) if has_corr else 0))
-
-
-def corr_bound_s(flow: dict, net_hw, pairs: int) -> float:
-    """The least time of ``pairs`` cost volumes: the larger of their
-    operations at the bf16 peak and their bytes (two bf16 feature maps
-    read, the float32 volume written) at the memory rate."""
-    c, h, w, d = corr_shape(flow, net_hw)
+def corr_bound_s(volume, pairs: int) -> float:
+    """The least time of ``pairs`` cost volumes of shape ``volume``: the
+    larger of their operations at the bf16 peak and their bytes (two bf16
+    feature maps read, the float32 volume written) at the memory rate."""
+    c, h, w, d = volume
     nbytes = pairs * (2 * c * h * w * 2 + d * d * h * w * 4)
-    return max(pairs * corr_flops(flow, net_hw) / PEAK_BF16_FLOPS,
+    return max(pairs * corr_flops(volume) / PEAK_BF16_FLOPS,
                nbytes / PEAK_BYTES)
 
 

@@ -27,7 +27,6 @@ import torch
 from torch.profiler import record_function
 
 from portbench import check, spec, trace, video, weights
-from portbench.reference import nets
 from portbench.reference.clip import ClipReference
 
 TRACE_S = 3.0
@@ -39,14 +38,10 @@ EAGER_WARMUPS = 2
 
 
 def reference_nets(config: dict, device):
-    """The configuration's pose and flow nets of the reference."""
-    m, f = config["model"], config["flow"]
-    pose = nets.PoseResNet(m["num_layers"], m["num_joints"],
-                           m["num_deconv_filters"], m["num_deconv_kernels"],
-                           m["final_conv_kernel"])
-    flow = nets.flow_net(f["variant"], f["div_flow"],
-                         f["corr_max_displacement"], f["corr_stride2"])
-    return pose.to(device).eval(), flow.to(device).eval()
+    """The configuration's pose and flow nets of the reference, built by the
+    modules its ``reference`` section names."""
+    return tuple(spec.reference(config, role).build(config, device)
+                 for role in ("pose", "flow"))
 
 
 def states(config: dict, seed: int, device) -> tuple:

@@ -2,12 +2,12 @@
 larger of the cost volumes' operations at the bf16 peak and their bytes
 (two bf16 feature maps in, the float32 volume out) at the memory rate,
 for every frame pair of the steps, over the device time of the
-correlation kernels (one launch a step)."""
+correlation kernels (one launch a step). The volume's shape is the flow
+module's (``cost_volume``), asked only where the kernel ran."""
 
 import re
 
-from portbench import counts
-from portbench.reference.ops import net_size
+from portbench import counts, spec
 
 KERNEL = re.compile(r"\bcorrelation(_mma)?_kernel\b")
 
@@ -21,6 +21,6 @@ def read(run):
     if len(times) < len(batches):
         return None
     pairs = sum(dv.shape[0] * (dv.shape[1] - 1) for dv, _ in batches)
-    net_hw = net_size(*run.traffic["frame_hw"])
-    return counts.corr_bound_s(run.config["flow"], net_hw, pairs) \
-        / sum(times) * 100.0
+    volume = spec.reference(run.config, "flow").cost_volume(
+        run.config, run.traffic["frame_hw"])
+    return counts.corr_bound_s(volume, pairs) / sum(times) * 100.0

@@ -39,9 +39,9 @@ CROP_BLOCK, PAIR_BLOCK = 128, 2
 
 class ClipReference:
     """One lane of the clip program over ``pose_net`` and ``flow_net``
-    (float32 reference nets, or the control's rounded ones). ``cfg`` is the
-    configuration file's ``model``, ``flow``, ``test`` and ``track``
-    sections."""
+    (float32 reference nets, or the control's rounded ones, under the
+    contracts of ``nets.py``). ``cfg`` is the configuration file; this
+    reads its ``model``, ``test`` and ``track`` sections."""
 
     def __init__(self, cfg: dict, pose_net, flow_net, device):
         test, track = cfg["test"], cfg["track"]
@@ -60,7 +60,6 @@ class ClipReference:
         self.crop_hw = (h, w)
         self.aspect = w / h
         self.k = cfg["model"]["num_joints"]
-        self.full_res = cfg["flow"]["variant"] == "flownet2"
         # the heatmaps' size as the net gives it (a quarter of the crop,
         # rounded up through the backbone's strides)
         with torch.no_grad():
@@ -71,14 +70,10 @@ class ClipReference:
     @torch.no_grad()
     def flows(self, frames):
         """(F, H, W, 3) uint8 on the device -> (F - 1, H, W, 2) pixels."""
-        fc = self.cfg["flow"]
         out = []
         for lo in range(0, frames.shape[0] - 1, PAIR_BLOCK):
             hi = min(lo + PAIR_BLOCK, frames.shape[0] - 1)
-            x = ops.flow_input(frames[lo:hi], frames[lo + 1:hi + 1],
-                               fc["rgb_max"])
-            out.append(ops.flow_output(self.flow_net(x), self.full_res,
-                                       frames.shape[1:3], fc["div_flow"]))
+            out.append(self.flow_net(frames[lo:hi], frames[lo + 1:hi + 1]))
         return torch.cat(out)
 
     @torch.no_grad()

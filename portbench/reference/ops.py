@@ -1,11 +1,11 @@
-"""Plain operations of the benchmark's reference: the flow's pre- and
-post-processing, the person crop, the flip test, the heatmap decode and
-rescore, OKS, IoU and greedy matching, joint propagation.
+"""Plain operations of the benchmark's reference: the antialiased resize,
+the person crop, the flip test, the heatmap decode and rescore, OKS, IoU
+and greedy matching, joint propagation.
 
 Each is written from the lineage's definition (Simple Baselines' test
-transforms and ``get_final_preds``, FlowNet's input normalisation, COCO's
-OKS) in plain float32 PyTorch, or float64 numpy where the lineage computes
-on the host. Nothing here imports the program or JAX.
+transforms and ``get_final_preds``, COCO's OKS) in plain float32 PyTorch,
+or float64 numpy where the lineage computes on the host. Nothing here
+imports the program or JAX.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ COCO_SIGMAS = (0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072,
 SPACING = float(np.spacing(1))
 
 
-# ---- flow input and output ---------------------------------------------
+# ---- resize ----------------------------------------------------------------
 
 def shrink_weights(n_in: int, n_out: int, device):
     """(n_in, n_out) antialiased bilinear weights of a shrinking resize
@@ -60,38 +60,6 @@ def resize(x, out_hw):
     if ow != w:
         y = torch.einsum("nhwc,wk->nhkc", y, shrink_weights(w, ow, x.device))
     return y
-
-
-def net_size(h: int, w: int):
-    return -(-h // 64) * 64, -(-w // 64) * 64
-
-
-def flow_input(prev, nxt, rgb_max: float):
-    """Frame pairs (N, H, W, 3) uint8 -> the nets' (N, 6, h64, w64) input:
-    each frame enlarged to the /64 grid, minus the pair's per-channel mean
-    over both frames, over rgb_max."""
-    hw = net_size(*prev.shape[1:3])
-    a = resize(prev.float(), hw)
-    b = resize(nxt.float(), hw)
-    pair = torch.stack([a, b], 1)
-    mean = pair.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64).float() \
-        / float(pair[0, ..., 0].numel())
-    pair = (pair - mean) / rgb_max
-    return torch.cat([pair[:, 0], pair[:, 1]], -1).permute(0, 3, 1, 2)
-
-
-def flow_output(out, full_res: bool, out_hw, div_flow: float):
-    """A net's (N, 2, fh, fw) output -> flow (N, H, W, 2) in pixels of
-    ``out_hw``: quarter-resolution outputs times div_flow at 4x their size,
-    then resized with the components rescaled."""
-    flow = out.permute(0, 2, 3, 1)
-    fh, fw = flow.shape[1:3]
-    if not full_res:
-        flow = flow * div_flow
-        fh, fw = fh * 4, fw * 4
-    oh, ow = out_hw
-    flow = resize(flow, out_hw)
-    return flow * torch.tensor([ow / fw, oh / fh], device=flow.device)
 
 
 # ---- person crops --------------------------------------------------------

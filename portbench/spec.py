@@ -2,7 +2,12 @@
 
 * a configuration ``<name>``: ``configs/<name>.json``, the program's
   settings section by section (the port's field names), the rules of its
-  seeded weights, its source and what differs from it;
+  seeded weights, its source and what differs from it, and its
+  ``reference`` section;
+* a reference net ``<module>``, named by a configuration's ``reference``
+  section for its pose and its flow net: ``reference/<module>.py``, whose
+  ``build(config, device)`` gives the float32 net (the contracts are in
+  ``reference/nets.py``);
 * a traffic mix ``<name>``: ``traffic/<name>.json``, the parameters that
   the generator of its ``kind`` reads (``drivers/<kind>.py`` drives it);
 * a cell ``<name>``: ``cells/<name>.json``, the limits of the comparison
@@ -10,8 +15,9 @@
 * a per-layer metric ``<name>``: ``metrics/<name>.py``, whose ``read(run)``
   returns the metric's value or None where the run has nothing to read.
 
-A later change adds a configuration, a cell or a metric by adding such a
-file and its entry in ``BENCHMARK.json``; no file here names one.
+A later change adds a configuration, a reference net, a cell or a metric
+by adding such a file and its entry in ``BENCHMARK.json``; no file here
+names one.
 """
 
 from __future__ import annotations
@@ -73,14 +79,27 @@ def driver(kind: str):
     return importlib.import_module(f"portbench.drivers.{kind}")
 
 
-def reader(metric: str):
-    """``metrics/<metric>.py``'s ``read`` (a name may hold dots)."""
-    path = HERE / "metrics" / f"{metric}.py"
+def _load(path: Path, name: str):
+    """The Python file ``path`` as a module of its own named ``name``."""
     spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{metric.replace('.', '_').replace('-', '_')}", path)
+        name.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str):
+    """``metrics/<metric>.py``'s ``read`` (a name may hold dots)."""
+    return _load(HERE / "metrics" / f"{metric}.py",
+                 f"portbench_metric_{metric}").read
+
+
+def reference(config: dict, role: str):
+    """The module ``reference/<name>.py`` that the configuration's
+    ``reference`` section names for ``role`` (``pose`` or ``flow``)."""
+    name = config["reference"][role]
+    return _load(HERE / "reference" / f"{name}.py",
+                 f"portbench_reference_{name}")
 
 
 def port_config(config: dict):

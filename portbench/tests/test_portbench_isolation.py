@@ -49,6 +49,8 @@ def test_the_benchmark_imports_neither_jax_nor_the_jax_package():
 
 def test_the_reference_imports_nothing_of_the_program():
     loaded = imported(["portbench.reference.nets", "portbench.reference.ops",
+                       "portbench.reference.pose_resnet",
+                       "portbench.reference.flownet",
                        "portbench.reference.clip", "portbench.check",
                        "portbench.counts", "portbench.control"])
     assert not loaded & set(FORBIDDEN + ("flowtrack_tpu_torch",))

@@ -136,3 +136,132 @@ def test_a_config_a_cell_and_a_metric_are_added_by_files(tmp_path):
             "window_s": 2.5})) == 2.5
     finally:
         spec.HERE = here
+
+
+# A flow architecture unlike FlowNet: frames padded to a /8 grid (not
+# resized to /64), normalised as 2 x / 255 - 1 (no pair mean), an all-pairs
+# volume as a plain matmul whose operands go through ``corr_quant``, and
+# full-resolution flow in pixels from its own upsampling.
+ALL_PAIRS = '''
+"""A toy all-pairs flow net under the flow contract of ``nets.py``."""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from portbench.reference.nets import QConv2d, identity
+
+
+class AllPairs(nn.Module):
+    corr_quant = staticmethod(identity)
+
+    def __init__(self, dim):
+        super().__init__()
+        self.fnet = QConv2d(3, dim, 8, 8)
+        self.head = QConv2d(2, 2, 3, 1, 1)
+
+    def core(self, x):
+        f1, f2 = self.fnet(x[:, :3]), self.fnet(x[:, 3:])
+        n, _, h, w = f1.shape
+        a = self.corr_quant(f1).flatten(2).transpose(1, 2)
+        b = self.corr_quant(f2).flatten(2)
+        volume = torch.matmul(a, b).softmax(-1)
+        ys, xs = torch.meshgrid(torch.arange(h, device=x.device),
+                                torch.arange(w, device=x.device),
+                                indexing="ij")
+        at = torch.stack([xs, ys], -1).reshape(h * w, 2).float()
+        moved = torch.matmul(volume, at) - at
+        return self.head(moved.transpose(1, 2).reshape(n, 2, h, w))
+
+    def forward(self, prev, nxt):
+        h, w = prev.shape[1:3]
+        x = torch.cat([prev, nxt], -1).permute(0, 3, 1, 2).float()
+        x = F.pad(2 * x / 255 - 1, (0, -w % 8, 0, -h % 8))
+        up = F.interpolate(self.core(x) * 8, scale_factor=8)
+        return up[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+def build(config, device):
+    return AllPairs(config["flow"]["feature_dim"]).to(device).eval()
+
+
+def net_input(config, frame_hw):
+    h, w = frame_hw
+    return (1, 6, -(-h // 8) * 8, -(-w // 8) * 8)
+
+
+def uncounted_flops(config, frame_hw):
+    return 0
+'''
+
+
+def test_a_flow_architecture_is_added_by_files(tmp_path):
+    """On a copy: a configuration whose flow reference is a new module file
+    (``ALL_PAIRS``) is built, seeded, run, counted and rounded by the
+    harness through the configuration's ``reference`` section alone; no
+    file that was there changes."""
+    import importlib
+
+    import torch
+
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    pb = tmp_path / "portbench"
+    before = _digest(pb)
+    (pb / "reference" / "allpairs.py").write_text(ALL_PAIRS)
+    cfg = json.load(open(pb / "configs" / "simplebaseline-r50-flownetc.json"))
+    cfg["name"] = "simplebaseline-r50-allpairs"
+    cfg["reference"]["flow"] = "allpairs"
+    cfg["flow"] = {"variant": "allpairs", "feature_dim": 16}
+    cfg["model"]["image_size"] = [64, 48]
+    json.dump(cfg, open(pb / "configs" / f"{cfg['name']}.json", "w"))
+    after = _digest(pb)
+    assert all(after[p] == d for p, d in before.items())
+
+    spec = importlib.import_module("portbench.spec")
+    from portbench import counts
+    from portbench.drivers import offline
+    from portbench.reference.clip import ClipReference
+    from portbench.reference.nets import set_quant
+
+    here = spec.HERE
+    cpu = torch.device("cpu")
+    try:
+        spec.HERE = pb
+        pose, flow = offline.reference_nets(cfg, cpu)
+        assert type(flow).__name__ == "AllPairs"
+        pose_sd, flow_sd = offline.states(cfg, 2 ** 31 + 3, cpu)
+        assert set(flow_sd) == {"fnet.weight", "fnet.bias", "head.weight",
+                                "head.bias"}
+        pose.load_state_dict(pose_sd)
+        flow.load_state_dict(flow_sd)
+
+        g = torch.Generator().manual_seed(3)
+        frames = (torch.rand(5, 60, 100, 3, generator=g) * 255).to(
+            torch.uint8)
+        flows = ClipReference(cfg, pose, flow, cpu).flows(frames)
+        assert flows.shape == (4, 60, 100, 2) and flows.dtype == torch.float32
+        assert flows.abs().max() > 0
+
+        # 60x100 frames pad to 64x104: p = 8 x 13 features of 16 channels
+        p, dim = 8 * 13, 16
+        fnet = 2 * (2 * 3 * 64 * dim * p)
+        volume = 2 * p * dim * p
+        head = 2 * 2 * 9 * 2 * p
+        assert counts.flow_flops(cfg, (60, 100)) == (
+            fnet + volume + 2 * p * p * 2 + head)
+
+        seen = []
+
+        def quant(x):
+            seen.append(tuple(x.shape))
+            return x
+
+        set_quant(flow, quant)
+        with torch.no_grad():
+            flow(frames[:1], frames[1:2])
+        assert seen.count((1, dim, 8, 13)) == 2           # the volume's maps
+        assert seen.count((dim, 3, 8, 8)) == 2            # fnet's weight
+        assert seen.count((2, 2, 3, 3)) == 1              # head's weight
+    finally:
+        spec.HERE = here
